@@ -1,0 +1,207 @@
+"""The port's GF kernels: plain versions against the Pallas kernels, and
+the CUDA kernels against their plain versions on the card.
+
+On this CPU the JAX kernels run as their own tests run them
+(``interpret=True``), and the port's wrappers take their plain PyTorch
+versions because the tensors lie on the CPU.  GF arithmetic is exact:
+every comparison is byte-exact.
+
+The tests marked ``cuda`` need an NVIDIA card and nvcc; they decide
+inside a fixture, so every worker collects the same tests, and skip
+here.  JAX is imported inside a fixture too, so this file also runs on
+a machine with the card and no JAX:
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import seeds as tseeds
+from repro_torch.kernels import gf_matmul as tgm
+from repro_torch.kernels import ref as tref
+
+# (n, K, L): ragged L (L % 4 != 0), n != K both ways, one > 512-word tile
+SHAPES = [(3, 3, 17), (5, 3, 1030), (2, 6, 2051)]
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX reference kernels, imported here and not at module level."""
+    jax = pytest.importorskip("jax")
+    from repro.core import seeds as jseeds
+    from repro.kernels import gf_matmul as jgm
+    from repro.kernels import ref as jr
+    return SimpleNamespace(jnp=jax.numpy, gm=jgm, ref=jr, seeds=jseeds)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def _draw(seed: int, n: int, K: int, L: int, s: int):
+    rng = np.random.default_rng(seed)
+    A = rng.integers(0, 1 << s, (n, K)).astype(np.uint8)
+    P = rng.integers(0, 1 << s, (K, L)).astype(np.uint8)
+    seeds = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    return A, P, seeds
+
+
+@pytest.mark.parametrize("L", [1, 4, 5, 17, 1030])
+def test_pack_unpack_match_reference(jref, L):
+    P = np.random.default_rng(L).integers(0, 256, (3, L)).astype(np.uint8)
+    W_ref = np.asarray(jref.gm.pack_lanes(P))
+    W = tgm.pack_lanes(torch.from_numpy(P))
+    assert W.dtype == torch.int32
+    np.testing.assert_array_equal(W.numpy(), W_ref)
+    np.testing.assert_array_equal(tgm.unpack_lanes(W, L).numpy(), P)
+    x = np.array([0x7F7F7F7F, -0x01010102, 0x40804080, -1], np.int32)
+    for s in range(1, 9):
+        want = np.asarray(jref.gm._xtime_packed(jref.jnp.asarray(x), s))
+        got = tgm._xtime_packed(torch.from_numpy(x), s).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,K,L", SHAPES)
+def test_packed_plain_matches_pallas(jref, s, n, K, L):
+    A, P, _ = _draw(n * 100 + K * 10 + s, n, K, L, s)
+    want = np.asarray(jref.gm.gf_matmul_pallas_packed(A, P, s=s,
+                                                      interpret=True))
+    got = tref.gf_matmul_packed_ref(torch.from_numpy(A),
+                                    torch.from_numpy(P), s)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the table oracle agrees with both, and with the reference's oracle
+    table = tref.gf_matmul_ref(torch.from_numpy(A), torch.from_numpy(P), s)
+    np.testing.assert_array_equal(table.numpy(), want)
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,K,L", SHAPES)
+def test_seeded_plain_matches_pallas(jref, s, n, K, L):
+    _, P, seeds = _draw(n * 100 + K * 10 + s + 1, n, K, L, s)
+    want = np.asarray(jref.gm.gf_matmul_pallas_packed_seeded(
+        jref.jnp.asarray(seeds), P, s=s, interpret=True))
+    ts = tseeds.as_seeds(seeds)
+    got = tref.gf_matmul_packed_seeded_ref(ts, torch.from_numpy(P), s)
+    np.testing.assert_array_equal(got.numpy(), want)
+    table = tref.gf_matmul_seeded_ref(ts, torch.from_numpy(P), s)
+    np.testing.assert_array_equal(table.numpy(), want)
+
+
+def test_zero_width_payload(jref):
+    A, P, seeds = _draw(0, 4, 3, 0, 8)
+    want = np.asarray(jref.gm.gf_matmul_pallas_packed(A, P, s=8))
+    for got in (tref.gf_matmul_packed_ref(torch.from_numpy(A),
+                                          torch.from_numpy(P), 8),
+                tref.gf_matmul_packed_seeded_ref(tseeds.as_seeds(seeds),
+                                                 torch.from_numpy(P), 8),
+                tgm.gf_matmul_packed(torch.from_numpy(A),
+                                     torch.from_numpy(P))):
+        assert got.shape == want.shape == (4, 0)
+
+
+def test_plain_versions_take_strided_column_views():
+    """`_stream` hands the kernels column slices of a wider P."""
+    A, P, seeds = _draw(5, 4, 4, 301, 8)
+    wide = torch.from_numpy(P)
+    view = wide[:, 3:257]
+    dense = view.contiguous()
+    A_t, s_t = torch.from_numpy(A), tseeds.as_seeds(seeds)
+    assert torch.equal(tgm.gf_matmul_packed(A_t, view),
+                       tgm.gf_matmul_packed(A_t, dense))
+    assert torch.equal(tgm.gf_matmul_packed_seeded(s_t, view),
+                       tgm.gf_matmul_packed_seeded(s_t, dense))
+
+
+def test_out_takes_a_column_view_of_a_wider_output():
+    """`_stream` hands the wrappers its output's chunk columns as `out`:
+    C lands in those columns, the rest of the tensor stays untouched."""
+    A, P, seeds = _draw(6, 5, 4, 301, 8)
+    A_t, P_t = torch.from_numpy(A), torch.from_numpy(P)
+    s_t = tseeds.as_seeds(seeds)
+    for fn, rows, want in (
+            (tgm.gf_matmul_packed, A_t,
+             tref.gf_matmul_packed_ref(A_t, P_t, 8)),
+            (tgm.gf_matmul_packed_seeded, s_t,
+             tref.gf_matmul_packed_seeded_ref(s_t, P_t, 8))):
+        wide = torch.full((5, 310), 7, dtype=torch.uint8)
+        got = fn(rows, P_t, s=8, out=wide[:, 3:304])
+        assert got.data_ptr() == wide[:, 3:304].data_ptr()
+        assert torch.equal(wide[:, 3:304], want)
+        assert (wide[:, :3] == 7).all() and (wide[:, 304:] == 7).all()
+
+
+def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
+    A, P, seeds = _draw(9, 5, 4, 99, 8)
+    before = tgm.launch_counts()
+    A_t, P_t = torch.from_numpy(A), torch.from_numpy(P)
+    s_t = tseeds.as_seeds(seeds)
+    assert torch.equal(tgm.gf_matmul_packed(A_t, P_t, s=8),
+                       tref.gf_matmul_packed_ref(A_t, P_t, 8))
+    assert torch.equal(tgm.gf_matmul_packed_seeded(s_t, P_t, s=8),
+                       tref.gf_matmul_packed_seeded_ref(s_t, P_t, 8))
+    assert tgm.launch_counts() == before
+
+
+def test_wrappers_reject_bad_operands():
+    P = torch.zeros((3, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="A must be"):
+        tgm.gf_matmul_packed(torch.zeros((2, 4), dtype=torch.uint8), P)
+    with pytest.raises(ValueError, match="A must be"):
+        tgm.gf_matmul_packed(torch.zeros((2, 3), dtype=torch.int32), P)
+    with pytest.raises(TypeError, match="P must be"):
+        tgm.gf_matmul_packed(torch.zeros((2, 3), dtype=torch.uint8),
+                             P.to(torch.int32))
+    with pytest.raises(ValueError, match="unsupported field"):
+        tgm.gf_matmul_packed(torch.zeros((2, 3), dtype=torch.uint8), P, s=9)
+    with pytest.raises(ValueError, match="seeds must be"):
+        tgm.gf_matmul_packed_seeded(torch.zeros((2,), dtype=torch.int32), P)
+    A = torch.zeros((2, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="out must be"):
+        tgm.gf_matmul_packed(A, P, out=torch.empty((2, 7), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="out must be"):
+        tgm.gf_matmul_packed_seeded(torch.zeros((2,), dtype=torch.int64), P,
+                                    out=torch.empty((2, 8)))
+    with pytest.raises(ValueError, match="unit column stride"):
+        tgm.gf_matmul_packed(A, P, out=torch.empty((8, 2),
+                                                   dtype=torch.uint8).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_cuda_kernels_match_plain_versions(cuda_device, s):
+    """Both CUDA kernels == their plain versions on the card, byte for
+    byte: ragged L, n != K, n over one row tile, strided and misaligned
+    column views, and L = 0 (no launch)."""
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    for n, K, L, off in [(8, 8, 1 << 16, 0), (10, 8, 1001, 0),
+                         (19, 7, 1030, 3), (3, 5, 4097, 4), (4, 4, 0, 0)]:
+        wide = torch.randint(0, 1 << s, (K, L + off + 4), generator=g,
+                             device=cuda_device, dtype=torch.uint8)
+        P = wide[:, off:off + L]
+        A = torch.randint(0, 1 << s, (n, K), generator=g,
+                          device=cuda_device, dtype=torch.uint8)
+        seeds = torch.randint(0, 1 << 32, (n,), generator=g,
+                              device=cuda_device, dtype=torch.int64)
+        # the seeded result goes into a column view of a wider output,
+        # as the engine's chunk loop hands it over
+        wide_out = torch.zeros((n, L + off + 4), device=cuda_device,
+                               dtype=torch.uint8)
+        before = tgm.launch_counts()
+        got = tgm.gf_matmul_packed(A, P, s=s)
+        got_s = tgm.gf_matmul_packed_seeded(seeds, P, s=s,
+                                            out=wide_out[:, off:off + L])
+        torch.cuda.synchronize()
+        launched = 1 if L else 0
+        assert tgm.launch_counts() == {
+            k: v + launched for k, v in before.items()}
+        assert torch.equal(got, tref.gf_matmul_packed_ref(A, P, s))
+        assert torch.equal(got_s,
+                           tref.gf_matmul_packed_seeded_ref(seeds, P, s))
+        assert not wide_out[:, :off].any() and \
+            not wide_out[:, off + L:].any()
