@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`
-with nvcc (sm_90a) and runs, failing on the first wrong result:
+with nvcc (sm_90a, one nvcc per source, all started together) and runs,
+failing on the first wrong result:
 
 1. each kernel against its plain PyTorch version on the card, byte for
-   byte: s in {1, 2, 4, 8}, the chunk shapes of phases 2 and 3, ragged
-   L, n != K, n above one row tile, strided and misaligned column views
-   of P and of the output, L = 0;
+   byte: the chunk shapes of phases 2 and 3, ragged L, n != K, n above
+   one row tile, strided and misaligned column views of P and of the
+   output, K = 1, L = 0.  The lane-packed kernels for s in {1, 2, 4, 8};
+   `gf_matmul_unpacked` for s in {1, 2, 3, 4, 8}, also on bytes >= 2^s;
+   `gf2_matmul` on A bytes 0..255 and raw P bytes; at small L all of
+   them against the table oracle too;
 2. `fednc_round` at the paper CNN's full width (32x32x3 inputs, 10
    classes, K = 10 clients, 2 extra tuples, 20% erasures, s = 8) with the
    `auto` and `auto_seeded` kernels: it must decode and equal
@@ -17,17 +21,29 @@ with nvcc (sm_90a) and runs, failing on the first wrong result:
 3. `CodingEngine.round` on a real update size: K = 8 clients of 500,000,000
    symbols (one float32 update of a 125M-parameter model), 2 extra
    tuples, 10% erasures, the default chunk width, materialized and
-   seeded: the decoded packets must equal P.
+   seeded: the decoded packets must equal P;
+4. `hierarchical_fednc_round` on the same CNN clients: 2 edges, 2 spare
+   tuples each, a 2-hop recoding WAN, the `cuda` kernels (the XOR kernel
+   at s = 1, the clmul kernel at s = 8), fused and per-edge: each must
+   decode and equal `fedavg_round` bit for bit;
+5. byzantine rounds on the CNN's packets (s = 8, `cuda`, 3 extra
+   tuples, 20% of tuples corrupted, flip / forge / both, verified): the
+   fused round must equal the stage-wise oracle, one must be flagged,
+   and `rounds_to_recovery` must accept a correct decode;
+6. phase 3's payload through the `cuda` kernels behind a 2-hop
+   recoding channel (the RowMix path): s = 8 on P, s = 1 on P & 1.
 
-Then it traces one round per configuration with torch.profiler (device
-busy share, device time per kernel), times each kernel and its plain
-version at the chunk shape (8 x 262,144) with CUDA events, and prints,
-before its last line, the
-card's name and power limit and one JSON object with every kernel's
-launches (phases 2 and 3), error, time, plain time and bound.  The last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the repository's `src/` beside it, it fails before printing a
-result.  It imports nothing of JAX and nothing of the JAX package.
+Each of phases 2-6 drives the main path with every launch count set to
+0 just before it and read just after, and fails if a kernel of that
+path was not launched.  Then it traces one round per 500M configuration
+with torch.profiler (device busy share, device time per kernel), times
+each kernel and its plain version at the chunk shape (8 x 262,144) with
+CUDA events, and prints, before its last line, the card's name and
+power limit and one JSON object with every kernel's launches (phases
+2-6), error, time, plain time and bound.  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+the repository's `src/` beside it, it fails before printing a result.
+It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -66,6 +83,18 @@ SEED_ROUND = 3                   # coding-row generator, phases 2 and 3
 SEED_ERASE2 = 7                  # erasure pattern, phase 2: 11 of 12 arrive
 SEED_ERASE3 = 1                  # erasure pattern, phase 3: 9 of 10 arrive
 SEED_P = 11                      # the phase-3 payload, drawn on the card
+# Phases 4-6 draw their coding rows and channel plans on the host (torch
+# CPU generators and numpy), so whether a round reaches rank K does not
+# depend on the card.  Over GF(2) it often does not: these seeds were
+# checked with the same draws on the CPU to decode at s = 1 and s = 8
+# (and, in phase 5, to flag a corrupted round).
+SEED_HIER = 1                    # edge coding rows, phase 4
+SEED_WAN = 0                     # 2-hop WAN plan, phase 4
+SEED_BYZ = 0                     # byzantine plan, phase 5
+SEED_BYZ_ROUND = 0               # coding rows, phase 5
+SEED_MIX = 0                     # coding rows, phase 6
+SEED_HOP = 1                     # 2-hop plan, phase 6
+KERNEL_SOURCES = ("gf_matmul", "gf2_xor")   # csrc/<name>.cu
 
 
 def fail(msg: str) -> None:
@@ -90,7 +119,7 @@ def card_line() -> str:
 # phase 1: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
-def phase1(gk, ref, seeds_mod) -> dict[str, int]:
+def phase1(gk, gx, ref, seeds_mod) -> dict[str, int]:
     """Byte-exact kernel == plain version; returns max |error| per kernel."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -103,47 +132,85 @@ def phase1(gk, ref, seeds_mod) -> dict[str, int]:
              (10, 10, 188584, 0, 0), (3, 5, 4097, 0, 3), (10, 8, 1001, 0, 0),
              (6, 6, 2050, 3, 1), (6, 6, 4096, 4, 4), (19, 7, 1030, 0, 2),
              (5, 1, 13, 0, 0), (4, 4, 0, 0, 0)]
-    worst = {"gf_matmul_packed": 0, "gf_matmul_packed_seeded": 0}
+    worst = {"gf_matmul_packed": 0, "gf_matmul_packed_seeded": 0,
+             "gf_matmul_unpacked": 0, "gf2_matmul": 0}
+
+    def held(name, a, b, what):
+        check(a.shape == b.shape and a.dtype == torch.uint8,
+              f"{name} {what}: shape {tuple(a.shape)}")
+        err = int((a.int() - b.int()).abs().max()) if a.numel() else 0
+        worst[name] = max(worst[name], err)
+        check(err == 0, f"{name} {what} differs from its plain version")
+
+    def draw(n, K, L, off, extra, hi):
+        wide = torch.randint(0, hi, (K, L + off + extra), generator=g,
+                             device=dev, dtype=torch.uint8)
+        A = torch.randint(0, hi, (n, K), generator=g, device=dev,
+                          dtype=torch.uint8)
+        # the result goes into columns of a wider output, as the
+        # engine's chunk loop hands them over
+        wide_out = torch.zeros((n, L + off + extra), device=dev,
+                               dtype=torch.uint8)
+        return A, wide[:, off:off + L], wide_out
+
+    def outside_untouched(name, wide_out, off, L, what):
+        check(not wide_out[:, :off].any() and
+              not wide_out[:, off + L:].any(),
+              f"{name} {what} wrote outside its output view")
+
     for s in (1, 2, 4, 8):
         for n, K, L, off, extra in cases:
-            wide = torch.randint(0, 1 << s, (K, L + off + extra), generator=g,
-                                 device=dev, dtype=torch.uint8)
-            P = wide[:, off:off + L]           # row-strided column view
-            A = torch.randint(0, 1 << s, (n, K), generator=g, device=dev,
-                              dtype=torch.uint8)
+            A, P, wide_out = draw(n, K, L, off, extra, 1 << s)
             seeds = torch.randint(0, 1 << 32, (n,), generator=g,
                                   device=dev, dtype=torch.int64)
-            # the materialized result goes into columns of a wider output,
-            # as the engine's chunk loop hands them over
-            wide_out = torch.zeros((n, L + off + extra), device=dev,
-                                   dtype=torch.uint8)
             got = gk.gf_matmul_packed(A, P, s=s, out=wide_out[:, off:off + L])
-            want = ref.gf_matmul_packed_ref(A, P, s)
             got_s = gk.gf_matmul_packed_seeded(seeds, P, s=s)
-            want_s = ref.gf_matmul_packed_seeded_ref(seeds, P, s)
             via_rows = gk.gf_matmul_packed(
                 seeds_mod.expand_rows(seeds, K, s), P, s=s)
             torch.cuda.synchronize()
-            check(not wide_out[:, :off].any() and
-                  not wide_out[:, off + L:].any(),
-                  f"gf_matmul_packed s={s} {(n, K, L, off)} wrote outside "
-                  f"its output view")
-            for name, a, b in (("gf_matmul_packed", got, want),
-                               ("gf_matmul_packed_seeded", got_s, want_s),
-                               ("gf_matmul_packed_seeded", got_s, via_rows)):
-                check(a.shape == (n, L) and a.dtype == torch.uint8,
-                      f"{name} s={s} {(n, K, L)}: shape {tuple(a.shape)}")
-                err = int((a.int() - b.int()).abs().max()) if a.numel() \
-                    else 0
-                worst[name] = max(worst[name], err)
-                check(err == 0, f"{name} s={s} (n,K,L,off)={(n, K, L, off)}"
-                                f" differs from its plain version")
+            what = f"s={s} (n,K,L,off)={(n, K, L, off)}"
+            outside_untouched("gf_matmul_packed", wide_out, off, L, what)
+            held("gf_matmul_packed", got, ref.gf_matmul_packed_ref(A, P, s),
+                 what)
+            held("gf_matmul_packed_seeded", got_s,
+                 ref.gf_matmul_packed_seeded_ref(seeds, P, s), what)
+            held("gf_matmul_packed_seeded", got_s, via_rows, what)
             if L and L <= 4097:                # independent table oracle
-                table = ref.gf_matmul_ref(A, P, s)
-                check(torch.equal(got, table),
-                      f"gf_matmul_packed s={s} {(n, K, L)} != table oracle")
-    print(f"phase 1: both kernels == plain versions, s in 1,2,4,8, "
-          f"{len(cases)} shapes each, max_abs_err={worst}")
+                check(torch.equal(got, ref.gf_matmul_ref(A, P, s)),
+                      f"gf_matmul_packed {what} != table oracle")
+    # the unpacked kernels: s-bit symbols, then whole bytes (>= 2^s),
+    # which the clmul formulation reads unmasked on A's side
+    for s in (1, 2, 3, 4, 8):
+        for hi in (1 << s, 256):
+            for n, K, L, off, extra in cases:
+                A, P, wide_out = draw(n, K, L, off, extra, hi)
+                got = gk.gf_matmul_unpacked(A, P, s=s,
+                                            out=wide_out[:, off:off + L])
+                torch.cuda.synchronize()
+                what = f"s={s} bytes<{hi} (n,K,L,off)={(n, K, L, off)}"
+                outside_untouched("gf_matmul_unpacked", wide_out, off, L,
+                                  what)
+                held("gf_matmul_unpacked", got,
+                     ref.gf_matmul_clmul_ref(A, P, s), what)
+                if hi == 1 << s and L and L <= 4097:
+                    check(torch.equal(got, ref.gf_matmul_ref(A, P, s)),
+                          f"gf_matmul_unpacked {what} != table oracle")
+    for n, K, L, off, extra in cases:           # A 0..255, raw P bytes
+        A, P, wide_out = draw(n, K, L, off, extra, 256)
+        got = gx.gf2_matmul(A, P, out=wide_out[:, off:off + L])
+        torch.cuda.synchronize()
+        what = f"(n,K,L,off)={(n, K, L, off)}"
+        outside_untouched("gf2_matmul", wide_out, off, L, what)
+        held("gf2_matmul", got, ref.gf2_matmul_ref(A, P), what)
+        if L and L <= 4097:      # each bit-plane is an s = 1 product
+            for b in range(8):
+                plane = ref.gf_matmul_ref(A & 1, (P >> b) & 1, 1)
+                check(torch.equal((got >> b) & 1, plane),
+                      f"gf2_matmul {what} bit {b} != table oracle")
+    print(f"phase 1: all four kernels == plain versions, "
+          f"{len(cases)} shapes each (packed s in 1,2,4,8; unpacked s in "
+          f"1,2,3,4,8 on s-bit symbols and on bytes >= 2^s; gf2 on A bytes "
+          f"0..255), max_abs_err={worst}")
     return worst
 
 
@@ -151,10 +218,11 @@ def phase1(gk, ref, seeds_mod) -> dict[str, int]:
 # phase 2: fednc_round at the paper CNN's full width
 # ---------------------------------------------------------------------------
 
-def phase2() -> None:
+def cnn_clients():
+    """(base, 10 perturbed CNN clients, weights, FedAvg of them) on the
+    card, from seeds."""
     from repro_torch.core import packets as pkt
-    from repro_torch.core.channel import ErasureChannel
-    from repro_torch.core.fednc import FedNCConfig, fedavg_round, fednc_round
+    from repro_torch.core.fednc import fedavg_round
     from repro_torch.models.cnn import init_cnn
 
     dev = torch.device("cuda")
@@ -165,6 +233,20 @@ def phase2() -> None:
         base) for _ in range(10)]
     weights = np.random.default_rng(SEED_CLIENTS).integers(50, 500, 10)
     want = fedavg_round(clients, weights, base).global_params
+    return base, clients, weights, want
+
+
+def same_tree(a, b) -> bool:
+    from repro_torch.core import packets as pkt
+    return all(torch.equal(x, y) for x, y in zip(
+        pkt.tree_flatten(a)[0], pkt.tree_flatten(b)[0], strict=True))
+
+
+def phase2(base, clients, weights, want) -> None:
+    from repro_torch.core import packets as pkt
+    from repro_torch.core.channel import ErasureChannel
+    from repro_torch.core.fednc import FedNCConfig, fednc_round
+
     n_bytes = sum(x.numel() * x.element_size()
                   for x in pkt.tree_flatten(base)[0])
     for kernel in ("auto", "auto_seeded"):
@@ -176,10 +258,8 @@ def phase2() -> None:
         torch.cuda.synchronize()
         check(res.decoded, f"phase 2 {kernel}: round did not decode "
                            f"({res.report})")
-        same = [torch.equal(a, b) for a, b in zip(
-            pkt.tree_flatten(res.global_params)[0],
-            pkt.tree_flatten(want)[0], strict=True)]
-        check(all(same), f"phase 2 {kernel}: FedNC != FedAvg")
+        check(same_tree(res.global_params, want),
+              f"phase 2 {kernel}: FedNC != FedAvg")
         print(f"phase 2: fednc_round kernel={kernel} CNN {n_bytes} bytes/"
               f"client K=10 {res.report}: decoded, == fedavg_round "
               f"bit-exact")
@@ -189,7 +269,7 @@ def phase2() -> None:
 # phase 3: CodingEngine.round at a real update size
 # ---------------------------------------------------------------------------
 
-def phase3(gk) -> torch.Tensor:
+def phase3(wrappers) -> torch.Tensor:
     from repro_torch.core.channel import ErasureChannel
     from repro_torch.engine import CodingEngine, EngineConfig
 
@@ -204,7 +284,7 @@ def phase3(gk) -> torch.Tensor:
     for kernel in ("auto", "auto_seeded", "auto_seeded", "auto"):
         eng = CodingEngine(EngineConfig(s=8, kernel=kernel, extra_tuples=2),
                            device="cuda")
-        before = gk.launch_counts()
+        before = launch_counts(wrappers)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = eng.round(P, torch.Generator().manual_seed(SEED_ROUND),
@@ -215,7 +295,7 @@ def phase3(gk) -> torch.Tensor:
         check(out.ok, f"phase 3 {kernel}: round did not decode "
                       f"({out.report})")
         check(torch.equal(out.packets, P), f"phase 3 {kernel}: P_hat != P")
-        after = gk.launch_counts()
+        after = launch_counts(wrappers)
         launches = {k: after[k] - before[k] for k in after}
         print(f"phase 3: CodingEngine.round kernel={eng.kernel_name} "
               f"K={K} L={PHASE3_L} {out.report} chunks="
@@ -229,72 +309,217 @@ def phase3(gk) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# where a round's time goes: one traced round per kernel configuration
+# phase 4: the hierarchical round at the CNN's full width
 # ---------------------------------------------------------------------------
 
-def trace_round(P: torch.Tensor) -> None:
-    """Profile one phase-3 round per configuration: device busy time (the
-    union of device activity), its share of the traced wall time, and the
-    device time per kernel name."""
+def phase4(base, clients, weights, want) -> None:
+    from repro_torch.core.channel import MultiHopChannel
+    from repro_torch.core.fednc import FedNCConfig
+    from repro_torch.core.hierarchy import hierarchical_fednc_round
+
+    for s in (1, 8):
+        results = {}
+        for fused in (True, False):
+            cfg = FedNCConfig(s=s, kernel_impl="cuda")
+            t0 = time.perf_counter()
+            res = hierarchical_fednc_round(
+                clients, weights, base, cfg,
+                torch.Generator().manual_seed(SEED_HIER), num_edges=2,
+                spare_per_edge=2,
+                wan_channel=MultiHopChannel(eta=2, seed=SEED_WAN),
+                fused=fused, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            name = "fused" if fused else "per-edge"
+            check(res.decoded, f"phase 4 s={s} {name}: round did not "
+                               f"decode ({res.report})")
+            check(same_tree(res.global_params, want),
+                  f"phase 4 s={s} {name}: hierarchical FedNC != FedAvg")
+            results[name] = res
+            print(f"phase 4: hierarchical_fednc_round s={s} kernel=cuda "
+                  f"{name} K=10 edges=2 spare=2 WAN 2-hop {res.report}: "
+                  f"decoded, == fedavg_round bit-exact; wall {wall:.6f} s")
+        check(same_tree(results["fused"].global_params,
+                        results["per-edge"].global_params),
+              f"phase 4 s={s}: fused != per-edge")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: byzantine rounds, fused against the stage-wise oracle
+# ---------------------------------------------------------------------------
+
+def phase5(clients) -> None:
+    from repro_torch.adversary import (MODES, ByzantineChannel,
+                                       rounds_to_recovery)
+    from repro_torch.engine import CodingEngine, EngineConfig
+
+    eng = CodingEngine(EngineConfig(s=8, kernel="cuda", extra_tuples=3),
+                       device="cuda")
+    P, _ = eng.packetize(clients)
+    K = P.shape[0]
+    flags = []
+    for mode in MODES:
+        chan = ByzantineChannel(0.2, seed=SEED_BYZ, mode=mode)
+        out = eng.round(P, torch.Generator().manual_seed(SEED_BYZ_ROUND),
+                        chan, verify=True)
+        A = eng.coding_matrix(torch.Generator().manual_seed(SEED_BYZ_ROUND),
+                              K + 3, K)
+        batch, _ = ByzantineChannel(0.2, seed=SEED_BYZ, mode=mode) \
+            .transmit_encoded(eng.encode(P, A), 8)
+        ok, P_hat, verified = eng.decode_verified(batch)
+        torch.cuda.synchronize()
+        check(out.ok == ok and out.verified == verified,
+              f"phase 5 {mode}: fused (ok={out.ok}, verified="
+              f"{out.verified}) != stage-wise (ok={ok}, verified="
+              f"{verified})")
+        check(not ok or torch.equal(out.packets, P_hat),
+              f"phase 5 {mode}: fused packets != stage-wise packets")
+        flags.append(out.verified)
+        print(f"phase 5: byzantine mode={mode} rate=0.2 K={K} L="
+              f"{P.shape[1]} corrupted={chan.corrupted} {out.report}: "
+              f"ok={out.ok} verified={out.verified} decoded==P "
+              f"{bool(out.ok and torch.equal(out.packets, P))}, == "
+              f"stage-wise oracle")
+    check(False in flags, "phase 5: no round was flagged by verification")
+    rec = rounds_to_recovery(eng, P, torch.Generator().manual_seed(
+        SEED_BYZ_ROUND), ByzantineChannel(0.2, seed=SEED_BYZ, mode="both"))
+    check(rec["accepted"] and rec["correct"],
+          f"phase 5: rounds_to_recovery {rec}")
+    print(f"phase 5: rounds_to_recovery mode=both: {rec}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the 500M payload through the unpacked kernels, RowMix path
+# ---------------------------------------------------------------------------
+
+def mix_engine(s: int):
+    from repro_torch.engine import CodingEngine, EngineConfig
+    return CodingEngine(EngineConfig(s=s, kernel="cuda", extra_tuples=2),
+                        device="cuda")
+
+
+def mix_channel():
+    from repro_torch.core.channel import MultiHopChannel
+    return MultiHopChannel(eta=2, seed=SEED_HOP)
+
+
+def phase6(wrappers, P: torch.Tensor, P1: torch.Tensor) -> None:
+    K = P.shape[0]
+    for s, X in ((8, P), (1, P1)):
+        eng = mix_engine(s)
+        before = launch_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = eng.round(X, torch.Generator().manual_seed(SEED_MIX),
+                        channel=mix_channel())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(out.ok, f"phase 6 s={s}: round did not decode ({out.report})")
+        check(torch.equal(out.packets, X), f"phase 6 s={s}: P_hat != P")
+        after = launch_counts(wrappers)
+        launches = {k: after[k] - before[k] for k in after}
+        print(f"phase 6: CodingEngine.round kernel=cuda s={s} K={K} "
+              f"L={X.shape[1]} 2-hop RowMix {out.report}: P_hat == P; wall "
+              f"{wall:.6f} s (synchronized), "
+              f"{K * X.shape[1] * 2 / wall / 1e9:.3f} GB/s payload in+out, "
+              f"dispatches {eng.dispatch_count}, launches {launches}, "
+              f"max_memory_allocated {peak} bytes")
+        del out
+
+
+# ---------------------------------------------------------------------------
+# where a round's time goes: one traced round per 500M configuration
+# ---------------------------------------------------------------------------
+
+def trace_round(label: str, eng, P: torch.Tensor, seed: int,
+                make_channel) -> None:
+    """Profile one round: device busy time (the union of device
+    activity), its share of the traced wall time, and the device time
+    per kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = eng.round(P, torch.Generator().manual_seed(seed),
+                        channel=make_channel())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(out.ok and torch.equal(out.packets, P),
+          f"traced round {label}: P_hat != P")
+    del out
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    check(len(spans) > 0, "the profiler recorded no device activity")
+    busy, (lo, hi) = 0.0, spans[0][:2]
+    per_name: dict[str, list[float]] = {}
+    for s, e, name in spans:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+        per_name.setdefault(name[:72], []).append(e - s)
+    busy += hi - lo
+    print(f"trace {label}: traced wall {wall_us:.1f} us, device busy "
+          f"{busy:.1f} us ({100 * busy / wall_us:.2f}% of the wall, "
+          f"idle {100 - 100 * busy / wall_us:.2f}%), "
+          f"{len(spans)} device activities")
+    for name, d in sorted(per_name.items(), key=lambda x: -sum(x[1])):
+        print(f"trace {label}:   {sum(d):.1f} us in {len(d)} x "
+              f"{name} (mean {sum(d) / len(d):.3f} us)")
+
+
+def trace_rounds(P: torch.Tensor, P1: torch.Tensor) -> None:
     from repro_torch.core.channel import ErasureChannel
     from repro_torch.engine import CodingEngine, EngineConfig
 
     for kernel in ("auto", "auto_seeded"):
         eng = CodingEngine(EngineConfig(s=8, kernel=kernel, extra_tuples=2),
                            device="cuda")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = eng.round(P, torch.Generator().manual_seed(SEED_ROUND),
-                            channel=ErasureChannel(0.1, seed=SEED_ERASE3))
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        check(out.ok and torch.equal(out.packets, P),
-              f"traced round {kernel}: P_hat != P")
-        del out
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        check(len(spans) > 0, "the profiler recorded no device activity")
-        busy, (lo, hi) = 0.0, spans[0][:2]
-        per_name: dict[str, list[float]] = {}
-        for s, e, name in spans:
-            if s > hi:
-                busy += hi - lo
-                lo, hi = s, e
-            else:
-                hi = max(hi, e)
-            per_name.setdefault(name[:72], []).append(e - s)
-        busy += hi - lo
-        print(f"trace {kernel}: traced wall {wall_us:.1f} us, device busy "
-              f"{busy:.1f} us ({100 * busy / wall_us:.2f}% of the wall, "
-              f"idle {100 - 100 * busy / wall_us:.2f}%), "
-              f"{len(spans)} device activities")
-        for name, d in sorted(per_name.items(), key=lambda x: -sum(x[1])):
-            print(f"trace {kernel}:   {sum(d):.1f} us in {len(d)} x "
-                  f"{name} (mean {sum(d) / len(d):.3f} us)")
+        trace_round(kernel, eng, P, SEED_ROUND,
+                    lambda: ErasureChannel(0.1, seed=SEED_ERASE3))
+    for s, X in ((8, P), (1, P1)):
+        trace_round(f"cuda s={s} 2-hop", mix_engine(s), X, SEED_MIX,
+                    mix_channel)
 
 
 # ---------------------------------------------------------------------------
 # timing at the chunk shape
 # ---------------------------------------------------------------------------
 
-def bound_ms(n: int, K: int, L: int, s: int, seeded: bool
+def bound_ms(n: int, K: int, L: int, s: int, kind: str
              ) -> tuple[float, str, float, float]:
-    """(bound ms, what bounds it, bytes, int32 ops) for one launch."""
+    """(bound ms, what bounds it, bytes, int32 ops) for one launch of a
+    kernel of `kind`: "ladder" (the GF(2^s) product, counted as the
+    packed ladder's least work, whatever the formulation), "seeded"
+    (the same plus Threefry) or "xor" (the GF(2) masked XOR on bytes:
+    one AND and one XOR per row, packet row and 4-byte word)."""
     words = -(-L // 4)
-    row_bytes = 8 * n if seeded else n * K
+    row_bytes = 8 * n if kind == "seeded" else n * K
     n_bytes = K * L + n * L + row_bytes
-    ops = words * (XTIME_OPS * K * (s - 1) + SELECT_OPS * n * K * s)
-    if seeded:
+    if kind == "xor":
+        ops = 2 * n * K * words
+    else:
+        ops = words * (XTIME_OPS * K * (s - 1) + SELECT_OPS * n * K * s)
+    if kind == "seeded":
         ops += n * -(-K // 4) * THREEFRY_OPS
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "operations" if t_ops > t_bytes
             else "bytes", n_bytes, ops)
+
+
+def clmul_ops(n: int, K: int, L: int) -> int:
+    """int32 operations of the unpacked kernel's own formulation: per
+    4 symbols, row and packet row, 8 masks from A's bits (2 each) and
+    16 select-and-XORs (2 each); per 4 symbols and packet row, the two
+    masked rungs and 14 shifts."""
+    words = -(-L // 4)
+    return words * (n * K * (8 * 2 + 16 * 2) + K * (4 + 14))
 
 
 def time_launches(fn, inputs, reps: int) -> float:
@@ -317,7 +542,7 @@ def time_launches(fn, inputs, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def time_kernels(gk, ref, P: torch.Tensor) -> dict:
+def time_kernels(gk, gx, ref, P: torch.Tensor) -> dict:
     n, K, L = CHUNK
     s = 8
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -326,38 +551,66 @@ def time_kernels(gk, ref, P: torch.Tensor) -> dict:
     seeds = torch.randint(0, 1 << 32, (n,), generator=g, device="cuda",
                           dtype=torch.int64)
     # distinct chunk views of the phase-3 payload, 2 MB each, 400 MB in
-    # all: every launch reads its chunk from HBM, as in the round
+    # all: every launch reads its chunk from HBM, as in the round.  The
+    # payload is raw bytes, which is what the XOR kernel combines.
     chunks = [P[:, c * L:(c + 1) * L] for c in range(200)]
     out = {}
-    for name, kern, plain, rows, seeded in (
+    for name, kern, plain, rows, kind in (
             ("gf_matmul_packed", gk.gf_matmul_packed,
-             ref.gf_matmul_packed_ref, A, False),
+             ref.gf_matmul_packed_ref, A, "ladder"),
             ("gf_matmul_packed_seeded", gk.gf_matmul_packed_seeded,
-             ref.gf_matmul_packed_seeded_ref, seeds, True)):
-        def run_plain(X, plain=plain, rows=rows):
-            return plain(rows, X, s)
+             ref.gf_matmul_packed_seeded_ref, seeds, "seeded"),
+            ("gf_matmul_unpacked", gk.gf_matmul_unpacked,
+             ref.gf_matmul_clmul_ref, A, "ladder"),
+            ("gf2_matmul", gx.gf2_matmul,
+             lambda M, X, s: ref.gf2_matmul_ref(M, X), A, "xor")):
+        ks = 1 if kind == "xor" else s
 
-        def run_kernel(X, kern=kern, rows=rows):
-            return kern(rows, X, s=s)
+        def run_plain(X, plain=plain, rows=rows, ks=ks):
+            return plain(rows, X, ks)
+
+        def run_kernel(X, kern=kern, rows=rows, ks=ks):
+            return kern(rows, X, s=ks)
 
         # in turns: plain, kernel, kernel, plain
         plain_a = time_launches(run_plain, chunks, 2)
         ms = time_launches(run_kernel, chunks, 400)
         ms_b = time_launches(run_kernel, chunks, 400)
         plain_b = time_launches(run_plain, chunks, 2)
-        b_ms, b_by, n_bytes, ops = bound_ms(n, K, L, s, seeded)
+        b_ms, b_by, n_bytes, ops = bound_ms(n, K, L, ks, kind)
         kernel_ms = min(ms, ms_b)
         plain_ms = min(plain_a, plain_b)
         out[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by}
-        print(f"timing {name} at (n,K,L)=({n},{K},{L}) s={s}: kernel "
+        own = (f"; the clmul formulation's own count {clmul_ops(n, K, L)} "
+               f"int32 ops, {clmul_ops(n, K, L) / kernel_ms / 1e9:.3f} "
+               f"T op/s" if name == "gf_matmul_unpacked" else "")
+        print(f"timing {name} at (n,K,L)=({n},{K},{L}) s={ks}: kernel "
               f"{ms:.6f} / {ms_b:.6f} ms, plain {plain_a:.6f} / "
               f"{plain_b:.6f} ms, bound {b_ms:.6f} ms by {b_by} "
               f"({n_bytes} bytes, {ops} int32 ops), "
               f"{n_bytes / kernel_ms / 1e6:.3f} GB/s, "
               f"{ops / kernel_ms / 1e9:.3f} T int32 op/s, "
-              f"{100 * b_ms / kernel_ms:.2f}% of the {b_by} bound")
+              f"{100 * b_ms / kernel_ms:.2f}% of the {b_by} bound{own}")
     return out
+
+
+def launch_counts(wrappers) -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in wrappers}
+
+
+def main_path(name: str, wrappers, needs: tuple[str, ...], run):
+    """Drive one path of the main run with every launch count set to 0
+    just before it and read just after; fail if a kernel the path names
+    was not launched.  Returns (counts, what `run` returned)."""
+    for fn in wrappers:
+        fn.launches = 0
+    result = run()
+    counts = launch_counts(wrappers)
+    for k in needs:
+        check(counts[k] > 0, f"{k} was not launched in {name}")
+    print(f"launches in {name}: {counts}")
+    return counts, result
 
 
 def main() -> None:
@@ -368,6 +621,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.core import seeds as seeds_mod
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import gf2_xor as gx
     from repro_torch.kernels import gf_matmul as gk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -375,37 +629,56 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}")
     t0 = time.perf_counter()
-    lib = build.build("gf_matmul")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # one nvcc each
+        libs = list(pool.map(build.build, KERNEL_SOURCES))
     gk._lib()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {' '.join(build.NVCC_FLAGS)})")
-    log = lib.with_name(lib.name + ".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas: {line.strip()}")
+    gx._lib()
+    print(f"build: {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.3f} s (nvcc "
+          f"{' '.join(build.NVCC_FLAGS)})")
+    for lib in libs:
+        log = lib.with_name(lib.name + ".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas: {line.strip()}")
 
-    errors = phase1(gk, ref, seeds_mod)
-    gk.reset_launch_counts()                   # the main path starts here
-    phase2()
-    after2 = gk.launch_counts()
-    P = phase3(gk)
-    counts = gk.launch_counts()                # ... and ends here
-    for name, c in counts.items():
-        check(after2[name] > 0, f"{name} was not launched in phase 2")
-        check(c - after2[name] > 0, f"{name} was not launched in phase 3")
-    print("kernels: " + ", ".join(
-        f"{k} launches={v} (phase 2: {after2[k]}, phase 3: "
-        f"{v - after2[k]})" for k, v in counts.items()))
+    wrappers = gk.WRAPPERS + gx.WRAPPERS
+    errors = phase1(gk, gx, ref, seeds_mod)
+    cnn = cnn_clients()
+    packed = ("gf_matmul_packed", "gf_matmul_packed_seeded")
+    runs = [
+        main_path("phase 2", wrappers, packed, lambda: phase2(*cnn)),
+        main_path("phase 3", wrappers, packed, lambda: phase3(wrappers)),
+        main_path("phase 4", wrappers, ("gf_matmul_unpacked", "gf2_matmul"),
+                  lambda: phase4(*cnn)),
+        main_path("phase 5", wrappers, ("gf_matmul_unpacked",),
+                  lambda: phase5(cnn[1])),
+    ]
+    P = runs[1][1]
+    P1 = P & 1
+    runs.append(main_path("phase 6", wrappers,
+                          ("gf_matmul_unpacked", "gf2_matmul"),
+                          lambda: phase6(wrappers, P, P1)))
+    counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
+              for fn in wrappers}
+    print("kernels: " + ", ".join(f"{k} launches={v}"
+                                  for k, v in counts.items())
+          + " (phases 2-6)")
 
-    trace_round(P)
-    times = time_kernels(gk, ref, P)
-    replaces = {"gf_matmul_packed": "src/repro/kernels/gf_matmul.py:204",
-                "gf_matmul_packed_seeded":
-                    "src/repro/kernels/gf_matmul.py:286"}
+    trace_rounds(P, P1)
+    del P1
+    times = time_kernels(gk, gx, ref, P)
+    gm_py = "src/repro/kernels/gf_matmul.py"
+    replaces = {"gf_matmul_packed": f"{gm_py}:204",
+                "gf_matmul_packed_seeded": f"{gm_py}:286",
+                "gf_matmul_unpacked": f"{gm_py}:93",
+                "gf2_matmul": "src/repro/kernels/gf2_xor.py:33"}
+    source = {"gf2_matmul": "src/repro_torch/kernels/csrc/gf2_xor.cu"}
     report = {"kernels": [{
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gf_matmul.cu",
+        "source": source.get(name,
+                             "src/repro_torch/kernels/csrc/gf_matmul.cu"),
         "replaces": replaces[name], "launches": counts[name],
         "max_abs_err": errors[name], "ms": times[name]["ms"],
         "plain_ms": times[name]["plain_ms"],

@@ -13,9 +13,14 @@ The port of `repro.core.fednc` (bit-exact path).  One round:
 
 The coded math lives in repro_torch.engine.CodingEngine; this module
 maps FedNCConfig onto an engine and turns decoded packets back into a
-weighted FedAvg aggregate.  The field path is bit-exact and the
-aggregate sums in the same term order as `fedavg_round`, so a decoded
-FedNC round equals FedAvg on the same clients bit for bit.
+weighted FedAvg aggregate.  `packetize_clients`/`encode_clients` (the
+client side) and `decode_and_aggregate`/`aggregate_decoded` (the server
+side) are the same round cut at the channel, for callers that carry the
+coded tuples themselves.  The reference's `quantize_bits` (lossy int8
+packets) is not ported: every path here is the bit-exact one.  The
+field path is bit-exact and the aggregate sums in the same term order
+as `fedavg_round`, so a decoded FedNC round equals FedAvg on the same
+clients bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.engine.defaults import DEFAULT_CHUNK_L
 
 from . import packets as pkt
 from .channel import ChannelReport
+from .rlnc import EncodedBatch
 
 
 @dataclass(frozen=True)
@@ -82,6 +88,47 @@ def _aggregate(P_hat: torch.Tensor, spec: pkt.PacketSpec,
     stacked = pkt.packets_to_pytrees(P_hat, spec)
     return pkt.tree_map(lambda x: _weighted_sum(w, [x[k] for k in range(K)]),
                         stacked)
+
+
+def packetize_clients(client_params: Sequence[Any], cfg: FedNCConfig,
+                      device="cuda") -> tuple[torch.Tensor, pkt.PacketSpec]:
+    """Head of Alg. 1 for callers that run their own coded pipeline:
+    (P, spec) on `device`."""
+    return engine_for(cfg, device).packetize(client_params)
+
+
+def aggregate_decoded(P_hat: torch.Tensor, spec: pkt.PacketSpec,
+                      weights: Sequence[float]) -> Any:
+    """Tail of Alg. 1 for callers that decode their own packets:
+    decoded (K, L) symbols -> weighted FedAvg aggregate, the same
+    arithmetic as `fednc_round`."""
+    return _aggregate(P_hat, spec, weights)
+
+
+def encode_clients(client_params: Sequence[Any], cfg: FedNCConfig,
+                   generator: torch.Generator, device="cuda"
+                   ) -> tuple[EncodedBatch, pkt.PacketSpec]:
+    """Packetize and RLNC-encode K client parameter trees on `device`:
+    (batch of K + extra_tuples tuples, spec)."""
+    engine = engine_for(cfg, device)
+    P, spec = engine.packetize(client_params)
+    K = P.shape[0]
+    A = engine.coding_matrix(generator, K + cfg.extra_tuples, K)
+    return engine.encode(P, A), spec
+
+
+def decode_and_aggregate(batch: EncodedBatch, spec: pkt.PacketSpec,
+                         weights: Sequence[float], prev_global: Any,
+                         cfg: FedNCConfig, device="cuda") -> RoundResult:
+    """Server side of Alg. 1: decode (selecting K rows when n > K),
+    weighted FedAvg, or skip."""
+    K = batch.K
+    if batch.n < K:
+        return RoundResult(prev_global, False, None, 0)
+    ok, P_hat = engine_for(cfg, device).decode(batch)
+    if not ok:
+        return RoundResult(prev_global, False, None, 0)
+    return RoundResult(_aggregate(P_hat, spec, weights), True, None, K)
 
 
 def fednc_round(client_params: Sequence[Any], weights: Sequence[float],

@@ -1,9 +1,13 @@
 """Random Linear Network Coding over GF(2^s) (paper §II-B, Alg. 1).
 
-The port of `repro.core.rlnc`'s batch types and coding-matrix draws.
-Encoded tuples are ``(a_i, C_i)``: the coding vector and the coded
-packet.  Every draw takes an explicit `torch.Generator` and happens on
-that generator's device.
+The port of `repro.core.rlnc`'s batch types, coding-matrix draws and
+relay recoding.  Encoded tuples are ``(a_i, C_i)``: the coding vector
+and the coded packet.  Every draw takes an explicit `torch.Generator`
+and happens on that generator's device.
+
+`recode` is the network-interior operation that Prop. 2's η counts: a
+relay holding tuples (A, C) emits fresh random combinations (R·A, R·C)
+without ever decoding.
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ class EncodedBatch:
     def __getitem__(self, idx) -> "EncodedBatch":
         return EncodedBatch(A=self.A[idx], C=self.C[idx])
 
+    def concat(self, other: "EncodedBatch") -> "EncodedBatch":
+        return EncodedBatch(A=torch.cat([self.A, other.A], 0),
+                            C=torch.cat([self.C, other.C], 0))
+
 
 @dataclass(frozen=True)
 class SeededBatch:
@@ -51,6 +59,12 @@ class SeededBatch:
 
     def __getitem__(self, idx) -> "SeededBatch":
         return SeededBatch(seeds=self.seeds[idx], C=self.C[idx], K=self.K)
+
+    def concat(self, other: "SeededBatch") -> "SeededBatch":
+        if other.K != self.K:
+            raise ValueError("generation sizes differ")
+        return SeededBatch(seeds=torch.cat([self.seeds, other.seeds], 0),
+                           C=torch.cat([self.C, other.C], 0), K=self.K)
 
     def expand(self, s: int) -> EncodedBatch:
         """Materialize the coding matrix (on the seeds' device):
@@ -85,3 +99,16 @@ def systematic_coding_matrix(generator: torch.Generator, n: int, K: int,
         return eye[:n]
     extra = get_field(s).random_elements(generator, (n - K, K))
     return torch.cat([eye, extra], dim=0)
+
+
+def recode(batch, generator: torch.Generator, n_out: int, s: int, *,
+           impl: str = "auto") -> EncodedBatch:
+    """Relay recoding: emit `n_out` fresh random combinations of the
+    received tuples; new coding vectors compose linearly, A' = R·A.
+
+    Thin adapter over :meth:`repro_torch.engine.CodingEngine.recode` on
+    the engine of the batch's payload device, with the registry kernel
+    named by `impl`."""
+    from repro_torch.engine import EngineConfig, get_engine  # avoids a cycle
+    return get_engine(EngineConfig(s=s, kernel=impl),
+                      device=batch.C.device).recode(batch, generator, n_out)

@@ -12,6 +12,12 @@ materialized sibling on the expanded matrix.  Built-in entries:
 ======================  ====================================================
 ``table``               log/exp table oracle (independent formulation — the
                         correctness reference)
+``clmul``               unpacked carry-less multiply in plain PyTorch
+                        (`ref.gf_matmul_clmul_ref`; the reference's
+                        ``jnp_clmul``)
+``cuda``                the unpacked hand-written CUDA kernels (the
+                        reference's ``pallas``): `gf2_matmul` at s=1,
+                        `gf_matmul_unpacked` for s>1
 ``cuda_packed``         the hand-written CUDA kernel `gf_matmul_packed`
 ``table_seeded``        seeded table oracle: expand rows, then ``table``
 ``cuda_packed_seeded``  the hand-written CUDA kernel
@@ -20,9 +26,11 @@ materialized sibling on the expanded matrix.  Built-in entries:
 ``auto_seeded``         alias: ``cuda_packed_seeded``
 ======================  ====================================================
 
-The aliases name the hand-written kernels on every engine device.  Their
-wrappers dispatch on the tensor's device: a CUDA engine launches the
-kernels, a CPU engine runs their plain PyTorch versions
+``cuda`` has no seeded sibling: its seeded name is ``table_seeded``, as
+the reference pairs ``pallas`` with ``jnp_seeded``.  The CUDA entries
+name the hand-written kernels on every engine device.  Their wrappers
+dispatch on the tensor's device: a CUDA engine launches the kernels, a
+CPU engine runs their plain PyTorch versions
 (`repro_torch.kernels.ref`), and nothing depends on what the process
 happens to see.
 """
@@ -33,8 +41,10 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.gf2_xor import gf2_matmul
 from repro_torch.kernels.gf_matmul import (gf_matmul_packed,
-                                           gf_matmul_packed_seeded)
+                                           gf_matmul_packed_seeded,
+                                           gf_matmul_unpacked)
 
 KernelFn = Callable[..., torch.Tensor]
 
@@ -138,7 +148,19 @@ def _table_seeded_kernel(seeds, P, *, s: int, out=None):
     return _into(ref.gf_matmul_seeded_ref(seeds, P, s), out)
 
 
+def _clmul_kernel(A, P, *, s: int, out=None):
+    return _into(ref.gf_matmul_clmul_ref(A, P, s), out)
+
+
+def _cuda_kernel(A, P, *, s: int, out=None):
+    if s == 1:
+        return gf2_matmul(A, P, out=out)
+    return gf_matmul_unpacked(A, P, s=s, out=out)
+
+
 register_kernel("table", _table_kernel)
+register_kernel("clmul", _clmul_kernel)
+register_kernel("cuda", _cuda_kernel)
 register_kernel("cuda_packed", gf_matmul_packed)
 register_kernel("table_seeded", _table_seeded_kernel, seeded=True)
 register_kernel("cuda_packed_seeded", gf_matmul_packed_seeded, seeded=True)

@@ -1,13 +1,15 @@
 """Hand-written Hopper kernels for FedNC's GF(2^s) coding hot spot.
 
-gf_matmul.py   — wrappers of the two CUDA kernels (lane-packed GF
-                 matmul, and its seeded variant), lane packing, launch
-                 counts
+gf_matmul.py   — wrappers of three CUDA kernels (lane-packed GF matmul,
+                 its seeded variant, the unpacked carry-less multiply),
+                 lane packing, launch counts
+gf2_xor.py     — wrapper of the GF(2) masked-XOR kernel (s = 1)
+ops.py         — `gf_matmul` through the registry, `gf2_combine`
 csrc/          — the CUDA C++ sources (sm_90a)
 build.py       — nvcc at first use into build/kernels/, ctypes loading
 ref.py         — plain PyTorch versions: table oracle + the kernels'
                  arithmetic in tensor ops
 """
-from . import gf_matmul, ref
+from . import gf2_xor, gf_matmul, ops, ref
 
-__all__ = ["gf_matmul", "ref"]
+__all__ = ["gf2_xor", "gf_matmul", "ops", "ref"]

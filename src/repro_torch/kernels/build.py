@@ -9,8 +9,9 @@ interface (no PyTorch headers, so a build takes seconds):
          csrc/<name>.cu
 
 The library lands in ``build/kernels/`` at the repository root (listed
-in ``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  nvcc's
+in ``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one loads at once.  nvcc's
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel)
 is kept beside the library as ``<library>.log``.  Nothing here runs at
 import time.
@@ -47,8 +48,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where `csrc/<name>.cu` builds to (hash of source and flags)."""
+    """Where `csrc/<name>.cu` builds to (hash of source, headers and
+    flags)."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,0 +1,44 @@
+// What the GF kernel sources share: the row tile, the alignment test
+// that picks a row's widest load, and the launcher's device handling.
+// Each source that includes it builds into its own library
+// (kernels/build.py hashes this header with it).
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace gf {
+
+constexpr int kRows = 16;                // output rows per block
+constexpr int kSmemBytes = 48 * 1024;    // default dynamic shared memory
+
+// Largest of 16, 4 and 1 that divides both a row's address and its
+// stride: the widest load every row of the matrix can take.
+inline int row_alignment(const void* p, long long ld) {
+  const auto a = reinterpret_cast<uintptr_t>(p);
+  if (a % 16 == 0 && ld % 16 == 0) return 16;
+  if (a % 4 == 0 && ld % 4 == 0) return 4;
+  return 1;
+}
+
+// Run `launch` (which launches on the current device) on `device`,
+// then give the calling thread back its own device.  Returns
+// cudaGetLastError() after the launch: a refused launch never runs,
+// and a later synchronize would not report it.
+template <typename F>
+int on_device(int device, F&& launch) {
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err == cudaSuccess && caller != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch();
+  err = cudaGetLastError();
+  if (caller != device) {
+    const cudaError_t back = cudaSetDevice(caller);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace gf

@@ -6,15 +6,19 @@
 // gf_matmul_packed_kernel<S, true>
 //   Replaces src/repro/kernels/gf_matmul.py gf_matmul_pallas_packed_seeded
 //   (_packed_seeded_kernel, with repro.core.seeds threefry2x32/coeff_words).
+// gf_matmul_unpacked_kernel<S>
+//   Replaces src/repro/kernels/gf_matmul.py gf_matmul_pallas (_kernel,
+//   _gf_mul_vec): the carry-less-multiply formulation, below.
 //
-// Arithmetic.  Four s-bit symbols ride in one 32-bit word, one per byte
-// (byte b of word j is symbol 4j+b, the little-endian bitcast the JAX
-// kernels use).  For each packet row k the thread builds the ladder
-// P_k·x^i, i < s, with a byte-masked xtime that never carries across
-// byte lanes, and XORs rung i into output row r wherever bit i of
-// A[r, k] is set.  No tables, no gathers: pure 32-bit logic and shifts.
+// Arithmetic of the packed kernels.  Four s-bit symbols ride in one
+// 32-bit word, one per byte (byte b of word j is symbol 4j+b, the
+// little-endian bitcast the JAX kernels use).  For each packet row k the
+// thread builds the ladder P_k·x^i, i < s, with a byte-masked xtime that
+// never carries across byte lanes, and XORs rung i into output row r
+// wherever bit i of A[r, k] is set.  No tables, no gathers: pure 32-bit
+// logic and shifts.
 //
-// What bounds it.  Per packed word the kernel does K·(s-1) xtimes (at
+// What bounds them.  Per packed word the kernel does K·(s-1) xtimes (at
 // least 4 int32 operations each) and n·K·s bit-selects (at least one
 // each) but moves only (K + n)·4 bytes.  At the main path's shapes
 // (n = K = 8, s = 8) that is 736 operations for 64 bytes, 11.5 per
@@ -28,6 +32,24 @@
 // row tile.  Coalesced 4-byte loads (a warp reads 128 contiguous bytes
 // of a row) keep the memory side far below its bound.
 //
+// Arithmetic of the unpacked kernel.  The reference computes, per k and
+// per symbol, clmul(A[i,k], P[k,j]) = XOR_{i<s} (A[i,k] << i)·bit_i(P)
+// in a 32-bit lane, reduces bits 2s-2..s by PRIMITIVE_POLY[s], XORs the
+// products and keeps the low byte; A's byte is not masked, P's bits at
+// or above s are never read.  Here a thread takes 4 consecutive symbols
+// (one 32-bit load when the row is aligned) and spreads them over two
+// registers of two 16-bit lanes each (symbols 0, 2 and 1, 3), masked to
+// s bits.  The clmul is computed the other way round, which carry-less
+// multiplication allows: XOR over the 8 bits j of A[i,k] of P << j.
+// The rungs P << j (j < 8) are shared by all output rows; a product has
+// at most 15 bits, so no lane spills into the next.  Reduction by the
+// polynomial is linear over GF(2), so the lanes accumulate the unreduced
+// products over k and reduce once per output, bit for bit the
+// reference's reduce-then-XOR.  What bounds it: per 4 symbols, per row
+// and per k, about 56 int32 operations (8 masks from A's bits, 16
+// select-and-XORs) against 4 bytes moved per (k + row): bound by the
+// int32 pipes, like the packed kernels, with ~6x their operations.
+//
 // Contract (checked by the Python wrappers): A (n, K) uint8 contiguous;
 // seeds (n,) int64 whose low 32 bits are the seeds; P (K, L) uint8 with
 // unit column stride and row stride ldp (a column slice of a wider
@@ -39,16 +61,48 @@
 
 #include <cuda_runtime.h>
 
+#include "gf_common.cuh"
+
 namespace {
 
-constexpr int kRows = 16;         // output rows per block (accumulators)
+using gf::kRows;
+
 constexpr int kThreads = 256;     // packed words per block, one per thread
 constexpr uint32_t kOne = 0x01010101u;   // bit 0 of every byte lane
+constexpr uint32_t kLane16 = 0x00010001u;  // bit 0 of both 16-bit lanes
 constexpr uint32_t kKeySalt = 0x46644E43u;  // "FdNC", repro.core.seeds
 
 __host__ __device__ constexpr uint32_t primitive_poly(int s) {
   return s == 1 ? 0x3u : s == 2 ? 0x7u : s == 3 ? 0xBu : s == 4 ? 0x13u
        : s == 5 ? 0x25u : s == 6 ? 0x43u : s == 7 ? 0x83u : 0x11Du;
+}
+
+// Word j of a byte row of length L; bytes past L read as 0.
+__device__ __forceinline__ uint32_t load_word(const uint8_t* row, long long j,
+                                              long long L, bool aligned) {
+  const long long b0 = 4 * j;
+  if (aligned && b0 + 4 <= L) {
+    return *reinterpret_cast<const uint32_t*>(row + b0);
+  }
+  uint32_t w = 0u;
+  for (int b = 0; b < 4; ++b) {
+    if (b0 + b < L) w |= static_cast<uint32_t>(row[b0 + b]) << (8 * b);
+  }
+  return w;
+}
+
+// Store word j of a byte row of length L; bytes past L are not written.
+__device__ __forceinline__ void store_word(uint8_t* row, long long j,
+                                           long long L, bool aligned,
+                                           uint32_t w) {
+  const long long b0 = 4 * j;
+  if (aligned && b0 + 4 <= L) {
+    *reinterpret_cast<uint32_t*>(row + b0) = w;
+    return;
+  }
+  for (int b = 0; b < 4; ++b) {
+    if (b0 + b < L) row[b0 + b] = static_cast<uint8_t>(w >> (8 * b));
+  }
 }
 
 // Multiply each of the four packed s-bit symbols by x, byte-parallel.
@@ -88,34 +142,6 @@ __device__ uint32_t threefry2x32_w0(uint32_t k0, uint32_t k1, uint32_t x0,
     }
   }
   return x0;
-}
-
-// Word j of a byte row of length L; bytes past L read as 0.
-__device__ __forceinline__ uint32_t load_word(const uint8_t* row, long long j,
-                                              long long L, bool aligned) {
-  const long long b0 = 4 * j;
-  if (aligned && b0 + 4 <= L) {
-    return *reinterpret_cast<const uint32_t*>(row + b0);
-  }
-  uint32_t w = 0u;
-  for (int b = 0; b < 4; ++b) {
-    if (b0 + b < L) w |= static_cast<uint32_t>(row[b0 + b]) << (8 * b);
-  }
-  return w;
-}
-
-// Store word j of a byte row of length L; bytes past L are not written.
-__device__ __forceinline__ void store_word(uint8_t* row, long long j,
-                                           long long L, bool aligned,
-                                           uint32_t w) {
-  const long long b0 = 4 * j;
-  if (aligned && b0 + 4 <= L) {
-    *reinterpret_cast<uint32_t*>(row + b0) = w;
-    return;
-  }
-  for (int b = 0; b < 4; ++b) {
-    if (b0 + b < L) row[b0 + b] = static_cast<uint8_t>(w >> (8 * b));
-  }
 }
 
 // grid = (ceil(ceil(L/4) / kThreads), ceil(n / kRows)); block = kThreads;
@@ -181,6 +207,79 @@ gf_matmul_packed_kernel(const uint8_t* __restrict__ A,
   }
 }
 
+// Reduce the unreduced clmul sums of both 16-bit lanes by the primitive
+// polynomial: bits 2S-2 down to S, as the reference's _gf_mul_vec does.
+template <int S>
+__device__ __forceinline__ uint32_t reduce_lanes16(uint32_t acc) {
+  constexpr uint32_t poly = primitive_poly(S);
+#pragma unroll
+  for (int i = 2 * S - 2; i >= S; --i) {
+    acc ^= ((acc >> i) & kLane16) * (poly << (i - S));
+  }
+  return acc;
+}
+
+// grid = (ceil(ceil(L/4) / kThreads), ceil(n / kRows)); block = kThreads;
+// dynamic shared memory = kRows * K bytes.
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+gf_matmul_unpacked_kernel(const uint8_t* __restrict__ A,
+                          const uint8_t* __restrict__ P, long long ldp,
+                          uint8_t* __restrict__ C, long long ldc, int n,
+                          int K, long long L, bool p_aligned,
+                          bool c_aligned) {
+  extern __shared__ uint8_t coeff[];  // [rows][K], whole bytes
+  const int row0 = blockIdx.y * kRows;
+  const int rows = min(kRows, n - row0);
+  for (int t = threadIdx.x; t < rows * K; t += blockDim.x) {
+    coeff[t] = A[static_cast<long long>(row0) * K + t];
+  }
+  __syncthreads();
+
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (j >= (L + 3) / 4) return;
+
+  constexpr uint32_t sym_mask = ((1u << S) - 1u) * kLane16;
+  uint32_t acc02[kRows], acc13[kRows];   // symbols 0, 2 and 1, 3
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc02[r] = acc13[r] = 0u;
+
+  for (int k = 0; k < K; ++k) {
+    const uint32_t w =
+        load_word(P + static_cast<long long>(k) * ldp, j, L, p_aligned);
+    uint32_t rung02[8], rung13[8];     // P << j for the 8 bits of A
+    rung02[0] = w & sym_mask;
+    rung13[0] = (w >> 8) & sym_mask;
+#pragma unroll
+    for (int i = 1; i < 8; ++i) {
+      rung02[i] = rung02[0] << i;
+      rung13[i] = rung13[0] << i;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < rows) {
+        const uint32_t a = coeff[r * K + k];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const uint32_t m = 0u - ((a >> i) & 1u);
+          acc02[r] ^= rung02[i] & m;
+          acc13[r] ^= rung13[i] & m;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < rows) {
+      const uint32_t w02 = reduce_lanes16<S>(acc02[r]) & 0x00FF00FFu;
+      const uint32_t w13 = reduce_lanes16<S>(acc13[r]) & 0x00FF00FFu;
+      store_word(C + static_cast<long long>(row0 + r) * ldc, j, L, c_aligned,
+                 w02 | (w13 << 8));
+    }
+  }
+}
+
 template <int S, bool Seeded>
 void launch_s(dim3 grid, size_t smem, cudaStream_t stream, const uint8_t* A,
               const long long* seeds, const uint8_t* P, long long ldp,
@@ -190,39 +289,63 @@ void launch_s(dim3 grid, size_t smem, cudaStream_t stream, const uint8_t* A,
       A, seeds, P, ldp, C, ldc, n, K, L, p_al, c_al);
 }
 
+// The launch geometry every kernel here shares: one thread per packed
+// word, kRows output rows per block, the coefficient tile in shared
+// memory.
+struct Geometry {
+  dim3 grid;
+  size_t smem;
+  bool p_al, c_al;
+};
+
+Geometry geometry(const uint8_t* P, long long ldp, const uint8_t* C,
+                  long long ldc, int n, int K, long long L) {
+  const long long words = (L + 3) / 4;
+  return {dim3(static_cast<unsigned>((words + kThreads - 1) / kThreads),
+               static_cast<unsigned>((n + kRows - 1) / kRows)),
+          static_cast<size_t>(kRows) * K, gf::row_alignment(P, ldp) >= 4,
+          gf::row_alignment(C, ldc) >= 4};
+}
+
 template <bool Seeded>
 int launch(const uint8_t* A, const long long* seeds, const uint8_t* P,
            long long ldp, uint8_t* C, long long ldc, int n, int K,
            long long L, int s, int device, cudaStream_t stream) {
   if (n <= 0 || L <= 0) return 0;
   if (s < 1 || s > 8 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
-  // Launch on P's device, then give the calling thread back its own.
-  int caller = 0;
-  cudaError_t err = cudaGetDevice(&caller);
-  if (err == cudaSuccess && caller != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long words = (L + 3) / 4;
-  const dim3 grid(static_cast<unsigned>((words + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((n + kRows - 1) / kRows));
-  const size_t smem = static_cast<size_t>(kRows) * K;
-  const bool p_al = reinterpret_cast<uintptr_t>(P) % 4 == 0 && ldp % 4 == 0;
-  const bool c_al = reinterpret_cast<uintptr_t>(C) % 4 == 0 && ldc % 4 == 0;
-  switch (s) {
-#define GF_CASE(SS)                                                         \
-  case SS:                                                                  \
-    launch_s<SS, Seeded>(grid, smem, stream, A, seeds, P, ldp, C, ldc, n, \
-                         K, L, p_al, c_al);                                 \
+  const Geometry g = geometry(P, ldp, C, ldc, n, K, L);
+  return gf::on_device(device, [&] {
+    switch (s) {
+#define GF_CASE(SS)                                                          \
+  case SS:                                                                   \
+    launch_s<SS, Seeded>(g.grid, g.smem, stream, A, seeds, P, ldp, C, ldc, n, \
+                         K, L, g.p_al, g.c_al);                              \
     break;
-    GF_CASE(1) GF_CASE(2) GF_CASE(3) GF_CASE(4)
-    GF_CASE(5) GF_CASE(6) GF_CASE(7) GF_CASE(8)
+      GF_CASE(1) GF_CASE(2) GF_CASE(3) GF_CASE(4)
+      GF_CASE(5) GF_CASE(6) GF_CASE(7) GF_CASE(8)
 #undef GF_CASE
-  }
-  err = cudaGetLastError();
-  if (caller != device) {
-    const cudaError_t back = cudaSetDevice(caller);
-    if (err == cudaSuccess) err = back;
-  }
-  return static_cast<int>(err);
+    }
+  });
+}
+
+int launch_unpacked(const uint8_t* A, const uint8_t* P, long long ldp,
+                    uint8_t* C, long long ldc, int n, int K, long long L,
+                    int s, int device, cudaStream_t stream) {
+  if (n <= 0 || L <= 0) return 0;
+  if (s < 1 || s > 8 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g = geometry(P, ldp, C, ldc, n, K, L);
+  return gf::on_device(device, [&] {
+    switch (s) {
+#define GF_CASE(SS)                                                     \
+  case SS:                                                              \
+    gf_matmul_unpacked_kernel<SS><<<g.grid, kThreads, g.smem, stream>>>( \
+        A, P, ldp, C, ldc, n, K, L, g.p_al, g.c_al);                    \
+    break;
+      GF_CASE(1) GF_CASE(2) GF_CASE(3) GF_CASE(4)
+      GF_CASE(5) GF_CASE(6) GF_CASE(7) GF_CASE(8)
+#undef GF_CASE
+    }
+  });
 }
 
 }  // namespace
@@ -230,7 +353,7 @@ int launch(const uint8_t* A, const long long* seeds, const uint8_t* P,
 extern "C" {
 
 // Largest K whose coefficient tile fits the default 48 KB of shared memory.
-int gf_max_k() { return 48 * 1024 / kRows; }
+int gf_max_k() { return gf::kSmemBytes / kRows; }
 
 int gf_matmul_packed(const void* A, const void* P, long long ldp, void* C,
                      long long ldc, int n, int K, long long L, int s,
@@ -248,6 +371,15 @@ int gf_matmul_packed_seeded(const void* seeds, const void* P, long long ldp,
                       static_cast<const uint8_t*>(P), ldp,
                       static_cast<uint8_t*>(C), ldc, n, K, L, s, device,
                       static_cast<cudaStream_t>(stream));
+}
+
+int gf_matmul_unpacked(const void* A, const void* P, long long ldp, void* C,
+                       long long ldc, int n, int K, long long L, int s,
+                       int device, void* stream) {
+  return launch_unpacked(static_cast<const uint8_t*>(A),
+                         static_cast<const uint8_t*>(P), ldp,
+                         static_cast<uint8_t*>(C), ldc, n, K, L, s, device,
+                         static_cast<cudaStream_t>(stream));
 }
 
 const char* gf_error_string(int code) {

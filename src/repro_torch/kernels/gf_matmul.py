@@ -1,18 +1,21 @@
-"""Lane-packed GF(2^s) coded matmul C = A·P: CUDA kernels and wrappers.
+"""GF(2^s) coded matmul C = A·P: CUDA kernels and wrappers.
 
 FedNC's compute hot spot: every round the (K, L) packet matrix P
 (L = model bytes) is mixed by the (n, K) coding matrix, and decode
-applies A^-1 the same way.  Two hand-written Hopper kernels live in
+applies A^-1 the same way.  Three hand-written Hopper kernels live in
 `csrc/gf_matmul.cu`:
 
 * `gf_matmul_packed(A, P, s=)` — replaces the TPU kernel
   `repro.kernels.gf_matmul.gf_matmul_pallas_packed`;
 * `gf_matmul_packed_seeded(seeds, P, s=)` — replaces
   `gf_matmul_pallas_packed_seeded`: row i's coefficients are
-  regenerated inside the kernel from seed i with Threefry-2x32-20.
+  regenerated inside the kernel from seed i with Threefry-2x32-20;
+* `gf_matmul_unpacked(A, P, s=)` — replaces `gf_matmul_pallas`: the
+  carry-less multiply and polynomial reduction of one symbol per lane.
 
-Both compute on four symbols per 32-bit word with the byte-masked
-xtime ladder below.  A wrapper decides by the tensor's device alone: a
+The first two compute on four symbols per 32-bit word with the
+byte-masked xtime ladder below.  A wrapper decides by the tensor's
+device alone: a
 CPU tensor runs the plain PyTorch version (`kernels.ref`), a CUDA
 tensor launches the kernel — and raises if the launch fails; there is
 no fallback.  With ``out=`` a wrapper writes C into the given (n, L)
@@ -82,8 +85,16 @@ def _lib() -> ctypes.CDLL:
     """The built library with every C function's types declared."""
     from . import build
 
-    lib = build.load("gf_matmul")
-    for fn in (lib.gf_matmul_packed, lib.gf_matmul_packed_seeded):
+    return declare(build.load("gf_matmul"), (
+        "gf_matmul_packed", "gf_matmul_packed_seeded", "gf_matmul_unpacked"))
+
+
+def declare(lib: ctypes.CDLL, kernels: tuple[str, ...]) -> ctypes.CDLL:
+    """Declare the types of `kernels` (each with `_SIGNATURE`) and of
+    the helpers every GF library exports (`gf_max_k`,
+    `gf_error_string`)."""
+    for name in kernels:
+        fn = getattr(lib, name)
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
     lib.gf_max_k.argtypes = []
@@ -93,9 +104,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_common(P: torch.Tensor, s: int) -> None:
+def check_field(s: int) -> None:
     if s not in PRIMITIVE_POLY:
         raise ValueError(f"unsupported field size s={s} (need 1..8)")
+
+
+def check_packets(P: torch.Tensor) -> None:
+    """P must be a (K, L) uint8 tensor on the CPU or a CUDA device."""
     if P.dim() != 2 or P.dtype != torch.uint8:
         raise TypeError(f"P must be a 2-D uint8 tensor, got "
                         f"{P.dtype} {tuple(P.shape)}")
@@ -103,7 +118,15 @@ def _check_common(P: torch.Tensor, s: int) -> None:
         raise ValueError(f"unsupported device {P.device}")
 
 
-def _check_out(out, n: int, P: torch.Tensor) -> None:
+def check_rows(A: torch.Tensor, P: torch.Tensor) -> None:
+    if A.dim() != 2 or A.dtype != torch.uint8 or A.shape[1] != P.shape[0]:
+        raise ValueError(f"A must be (n, {P.shape[0]}) uint8, got "
+                         f"{A.dtype} {tuple(A.shape)}")
+    if A.device != P.device:
+        raise ValueError(f"A on {A.device} but P on {P.device}")
+
+
+def check_out(out, n: int, P: torch.Tensor) -> None:
     if out is None:
         return
     L = P.shape[1]
@@ -116,16 +139,16 @@ def _check_out(out, n: int, P: torch.Tensor) -> None:
         raise ValueError("out needs unit column stride")
 
 
-def _plain(C: torch.Tensor, out) -> torch.Tensor:
+def plain(C: torch.Tensor, out) -> torch.Tensor:
     """The plain version's C, written into `out` when one is given."""
     return C if out is None else out.copy_(C)
 
 
-def _launch(wrapper, rows: torch.Tensor, P: torch.Tensor, n: int,
-            s: int, out) -> torch.Tensor:
-    """Launch `wrapper`'s kernel on P's device and current stream into
-    `out` (allocated when None), count the launch on the wrapper, and
-    return C (n, L)."""
+def launch(lib: ctypes.CDLL, wrapper, rows: torch.Tensor, P: torch.Tensor,
+           n: int, s: int, out) -> torch.Tensor:
+    """Launch `wrapper`'s kernel (the C function of `lib` named like
+    it) on P's device and current stream into `out` (allocated when
+    None), count the launch on the wrapper, and return C (n, L)."""
     K, L = P.shape
     if out is None:
         out = torch.empty((n, L), dtype=torch.uint8, device=P.device)
@@ -133,7 +156,6 @@ def _launch(wrapper, rows: torch.Tensor, P: torch.Tensor, n: int,
         return out
     if P.stride(1) != 1:          # rows may be strided; columns may not
         P = P.contiguous()
-    lib = _lib()
     if K > lib.gf_max_k():
         raise ValueError(f"K={K} exceeds the kernel's shared-memory tile "
                          f"(max {lib.gf_max_k()})")
@@ -156,16 +178,14 @@ def gf_matmul_packed(A: torch.Tensor, P: torch.Tensor, *, s: int = 8,
     CUDA tensors launch the hand-written kernel; CPU tensors run
     `ref.gf_matmul_packed_ref`.
     """
-    _check_common(P, s)
-    if A.dim() != 2 or A.dtype != torch.uint8 or A.shape[1] != P.shape[0]:
-        raise ValueError(f"A must be (n, {P.shape[0]}) uint8, got "
-                         f"{A.dtype} {tuple(A.shape)}")
-    if A.device != P.device:
-        raise ValueError(f"A on {A.device} but P on {P.device}")
-    _check_out(out, A.shape[0], P)
+    check_field(s)
+    check_packets(P)
+    check_rows(A, P)
+    check_out(out, A.shape[0], P)
     if P.device.type == "cpu":
-        return _plain(ref.gf_matmul_packed_ref(A, P, s), out)
-    return _launch(gf_matmul_packed, A.contiguous(), P, A.shape[0], s, out)
+        return plain(ref.gf_matmul_packed_ref(A, P, s), out)
+    return launch(_lib(), gf_matmul_packed, A.contiguous(), P, A.shape[0],
+                  s, out)
 
 
 def gf_matmul_packed_seeded(seeds: torch.Tensor, P: torch.Tensor, *,
@@ -177,24 +197,47 @@ def gf_matmul_packed_seeded(seeds: torch.Tensor, P: torch.Tensor, *,
     uint8 -> (n, L).  Bit-identical to
     ``gf_matmul_packed(expand_rows(seeds, K, s), P, s=s)``.
     """
-    _check_common(P, s)
+    check_field(s)
+    check_packets(P)
     if seeds.dim() != 1 or seeds.dtype != torch.int64:
         raise ValueError(f"seeds must be (n,) int64, got "
                          f"{seeds.dtype} {tuple(seeds.shape)}")
     if seeds.device != P.device:
         raise ValueError(f"seeds on {seeds.device} but P on {P.device}")
-    _check_out(out, seeds.shape[0], P)
+    check_out(out, seeds.shape[0], P)
     if P.device.type == "cpu":
-        return _plain(ref.gf_matmul_packed_seeded_ref(seeds, P, s), out)
-    return _launch(gf_matmul_packed_seeded, seeds.contiguous(), P,
-                   seeds.shape[0], s, out)
+        return plain(ref.gf_matmul_packed_seeded_ref(seeds, P, s), out)
+    return launch(_lib(), gf_matmul_packed_seeded, seeds.contiguous(), P,
+                  seeds.shape[0], s, out)
+
+
+def gf_matmul_unpacked(A: torch.Tensor, P: torch.Tensor, *, s: int = 8,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """C = A·P over GF(2^s) by carry-less multiply and reduction, one
+    symbol per lane: A (n, K) uint8, P (K, L) uint8 -> (n, L).
+
+    Equal to :func:`gf_matmul_packed` wherever A and P hold s-bit
+    symbols; on bytes >= 2^s it computes what the reference's
+    `gf_matmul_pallas` computes (A's byte whole, P's low s bits).  CUDA
+    tensors launch the hand-written kernel; CPU tensors run
+    `ref.gf_matmul_clmul_ref`.
+    """
+    check_field(s)
+    check_packets(P)
+    check_rows(A, P)
+    check_out(out, A.shape[0], P)
+    if P.device.type == "cpu":
+        return plain(ref.gf_matmul_clmul_ref(A, P, s), out)
+    return launch(_lib(), gf_matmul_unpacked, A.contiguous(), P,
+                  A.shape[0], s, out)
 
 
 gf_matmul_packed.launches = 0
 gf_matmul_packed_seeded.launches = 0
+gf_matmul_unpacked.launches = 0
 
 #: every hand-written kernel wrapper of this module
-WRAPPERS = (gf_matmul_packed, gf_matmul_packed_seeded)
+WRAPPERS = (gf_matmul_packed, gf_matmul_packed_seeded, gf_matmul_unpacked)
 
 
 def reset_launch_counts() -> None:

@@ -1,24 +1,75 @@
 """Plain PyTorch versions of the GF coding kernels.
 
 `gf_matmul_ref` (log/exp tables) is the correctness oracle: an
-independent formulation from the kernels' xtime ladder, so agreement is
-meaningful.  `gf_matmul_packed_ref` and `gf_matmul_packed_seeded_ref`
-repeat the CUDA kernels' arithmetic step for step in tensor ops — four
-symbols per int32 word, the Russian-peasant ladder
-``acc ^= (P_k·x^i) & bit_i(A[:, k])`` — and are what the kernel
-wrappers run for CPU tensors and what `chip_smoke.py` holds the kernels
-against on the card.
+independent formulation from the kernels' xtime ladder and carry-less
+multiply, so agreement is meaningful.  The others repeat a CUDA
+kernel's function in tensor ops, and are what the kernel wrappers run
+for CPU tensors and what `chip_smoke.py` holds the kernels against on
+the card:
+
+* `gf_matmul_packed_ref`, `gf_matmul_packed_seeded_ref` — four symbols
+  per int32 word, the Russian-peasant ladder
+  ``acc ^= (P_k·x^i) & bit_i(A[:, k])``;
+* `gf_matmul_clmul_ref` — one symbol per int32 lane, carry-less
+  multiply then reduction by the primitive polynomial
+  (`gf_matmul_unpacked`);
+* `gf2_matmul_ref` — the GF(2) masked XOR on raw bytes (`gf2_matmul`).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.gf import get_field
+from repro_torch.core.gf import PRIMITIVE_POLY, get_field
 
 
 def gf_matmul_ref(A: torch.Tensor, P: torch.Tensor, s: int) -> torch.Tensor:
     """C = A·P over GF(2^s). A: (n, K) uint8, P: (K, L) uint8."""
     return get_field(s, P.device).matmul(A, P)
+
+
+def _gf_mul_vec(a: torch.Tensor, b: torch.Tensor, s: int) -> torch.Tensor:
+    """GF(2^s) product of broadcasting int32 tensors, as the reference's
+    `_gf_mul_vec` computes it: the carry-less multiply
+    ``XOR_{i < s} (a << i)·bit_i(b)``, then reduction of bits 2s-2..s by
+    `PRIMITIVE_POLY[s]`.  Inputs are not masked: bits of `a` at or
+    above s shift along, bits of `b` at or above s are never read."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape, b.shape),
+                      dtype=torch.int32, device=a.device)
+    for i in range(s):
+        acc = acc ^ ((a << i) * ((b >> i) & 1))
+    poly = PRIMITIVE_POLY[s]
+    for i in range(2 * s - 2, s - 1, -1):
+        acc = acc ^ ((poly << (i - s)) * ((acc >> i) & 1))
+    return acc
+
+
+def gf_matmul_clmul_ref(A: torch.Tensor, P: torch.Tensor, s: int
+                        ) -> torch.Tensor:
+    """Unpacked carry-less-multiply formulation: one symbol per int32
+    lane, looped over k (memory O(n·L)).  The `gf_matmul_unpacked`
+    kernel's function; bit for bit the reference's
+    `gf_matmul_clmul_ref`, bytes >= 2^s included (the result keeps the
+    low 8 bits of each lane)."""
+    n, K = A.shape
+    A32 = A.to(device=P.device, dtype=torch.int32)
+    P32 = P.to(torch.int32)
+    acc = torch.zeros((n, P.shape[1]), dtype=torch.int32, device=P.device)
+    for k in range(K):
+        acc = acc ^ _gf_mul_vec(A32[:, k][:, None], P32[k][None, :], s)
+    return (acc & 0xFF).to(torch.uint8)
+
+
+def gf2_matmul_ref(A: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """GF(2) fast path on raw bytes: C[i] = XOR over {k : A[i,k] & 1}
+    of P[k].  Only bit 0 of A is read; P's bytes combine whole (for s=1
+    every bit-plane mixes with the same coefficients).  The
+    `gf2_matmul` kernel's function, looped over k."""
+    n, K = A.shape
+    bit = (A.to(P.device) & 1)
+    acc = torch.zeros((n, P.shape[1]), dtype=torch.uint8, device=P.device)
+    for k in range(K):
+        acc ^= P[k][None, :] * bit[:, k][:, None]
+    return acc
 
 
 def _ladder(coeff_of, W: torch.Tensor, n: int, K: int, s: int

@@ -179,15 +179,38 @@ def test_aliases_resolve_by_engine_device():
     assert seeded_kernel_name("cuda_packed") == "cuda_packed_seeded"
     assert materialized_kernel_name("cuda_packed_seeded") == "cuda_packed"
     assert seeded_kernel_name("table") == "table_seeded"
+    assert seeded_kernel_name("cuda") == "table_seeded"
     assert set(available_kernels()) == {
-        "table", "cuda_packed", "table_seeded", "cuda_packed_seeded",
-        "auto", "auto_seeded"}
+        "table", "clmul", "cuda", "cuda_packed", "table_seeded",
+        "cuda_packed_seeded", "auto", "auto_seeded"}
     eng = CodingEngine(EngineConfig(kernel="auto_seeded"), device="cpu")
     assert eng.seeded and eng.kernel_name == "cuda_packed_seeded"
     assert eng._seed_kernel is tgm.gf_matmul_packed_seeded
     assert eng._mat_kernel is tgm.gf_matmul_packed
     assert get_engine(EngineConfig(), "cpu") is get_engine(EngineConfig(),
                                                            "cpu")
+
+
+@pytest.mark.parametrize("s", [1, 8])
+def test_registry_cuda_and_clmul_equal_table(s):
+    """`cuda` (the XOR kernel at s=1, the clmul kernel above) and
+    `clmul` compute the table oracle's product, also into `out=`."""
+    rng = np.random.default_rng(30 + s)
+    A = _t(rng.integers(0, 1 << s, (6, 5)).astype(np.uint8))
+    P = _t(rng.integers(0, 1 << s, (5, 203)).astype(np.uint8))
+    want = resolve_kernel("table")[1](A, P, s=s)
+    for name in ("cuda", "clmul"):
+        fn = resolve_kernel(name)[1]
+        assert torch.equal(fn(A, P, s=s), want), name
+        wide = torch.zeros((6, 210), dtype=torch.uint8)
+        fn(A, P, s=s, out=wide[:, 4:207])
+        assert torch.equal(wide[:, 4:207], want), name
+        assert not wide[:, :4].any() and not wide[:, 207:].any(), name
+    eng = CodingEngine(EngineConfig(s=s, kernel="cuda", chunk_l=64),
+                       device="cpu")
+    assert eng._seed_kernel is resolve_kernel("table_seeded")[1]
+    out = eng.round(P, torch.Generator().manual_seed(1))
+    assert out.ok and torch.equal(out.packets, P)
 
 
 def test_register_kernel_guards():
@@ -238,7 +261,7 @@ def test_port_imports_neither_jax_nor_repro_in_a_subprocess():
                          capture_output=True, text=True, timeout=120,
                          check=False)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15        # every module was imported
+    assert int(out.stdout.strip()) >= 23        # every module was imported
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:

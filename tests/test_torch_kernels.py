@@ -1,6 +1,11 @@
 """The port's GF kernels: plain versions against the Pallas kernels, and
 the CUDA kernels against their plain versions on the card.
 
+Covered: the lane-packed ladder and its seeded variant
+(`gf_matmul_packed*`), the unpacked carry-less multiply
+(`gf_matmul_unpacked`, plain version `gf_matmul_clmul_ref`) and the
+GF(2) masked XOR (`gf2_matmul`, plain version `gf2_matmul_ref`).
+
 On this CPU the JAX kernels run as their own tests run them
 (``interpret=True``), and the port's wrappers take their plain PyTorch
 versions because the tensors lie on the CPU.  GF arithmetic is exact:
@@ -19,7 +24,9 @@ import pytest
 import torch
 
 from repro_torch.core import seeds as tseeds
+from repro_torch.kernels import gf2_xor as tgx
 from repro_torch.kernels import gf_matmul as tgm
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 # (n, K, L): ragged L (L % 4 != 0), n != K both ways, one > 512-word tile
@@ -31,9 +38,12 @@ def jref():
     """The JAX reference kernels, imported here and not at module level."""
     jax = pytest.importorskip("jax")
     from repro.core import seeds as jseeds
+    from repro.kernels import gf2_xor as jgx
     from repro.kernels import gf_matmul as jgm
+    from repro.kernels import ops as jops
     from repro.kernels import ref as jr
-    return SimpleNamespace(jnp=jax.numpy, gm=jgm, ref=jr, seeds=jseeds)
+    return SimpleNamespace(jnp=jax.numpy, gm=jgm, gx=jgx, ops=jops, ref=jr,
+                           seeds=jseeds)
 
 
 @pytest.fixture
@@ -172,6 +182,175 @@ def test_wrappers_reject_bad_operands():
                                                    dtype=torch.uint8).T)
 
 
+# ---------------------------------------------------------------------------
+# the unpacked kernels: carry-less multiply and the GF(2) XOR
+# ---------------------------------------------------------------------------
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x))
+
+
+@pytest.mark.parametrize("s", range(1, 9))
+@pytest.mark.parametrize("n,K,L", SHAPES)
+def test_clmul_plain_matches_pallas(jref, s, n, K, L):
+    A, P, _ = _draw(n * 1000 + K * 10 + s + 2, n, K, L, s)
+    want = np.asarray(jref.gm.gf_matmul_pallas(A, P, s=s, interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(jref.ref.gf_matmul_clmul_ref(A, P, s)), want)
+    got = tref.gf_matmul_clmul_ref(_t(A), _t(P), s)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # on s-bit symbols the clmul formulation is the field product
+    np.testing.assert_array_equal(
+        tref.gf_matmul_ref(_t(A), _t(P), s).numpy(), want)
+
+
+@pytest.mark.parametrize("s", range(1, 9))
+def test_clmul_plain_matches_pallas_on_bytes_above_the_field(jref, s):
+    """Bytes >= 2^s are not masked: A's byte shifts whole, P's bits at
+    or above s are never read, and the low byte of the lane is kept."""
+    rng = np.random.default_rng(40 + s)
+    A = rng.integers(0, 256, (4, 5)).astype(np.uint8)
+    P = rng.integers(0, 256, (5, 37)).astype(np.uint8)
+    want = np.asarray(jref.gm.gf_matmul_pallas(A, P, s=s, interpret=True))
+    got = tgm.gf_matmul_unpacked(_t(A), _t(P), s=s)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        np.asarray(jref.ref.gf_matmul_clmul_ref(A, P, s)), want)
+
+
+def _unpacked_kernel_emulated(A: np.ndarray, P: np.ndarray, s: int
+                              ) -> np.ndarray:
+    """`gf_matmul_unpacked_kernel<S>`'s lane arithmetic in numpy uint32:
+    4 symbols per word in two registers of two 16-bit lanes (symbols
+    0, 2 and 1, 3) masked to s bits, rungs P << j for A's 8 bits,
+    select-and-XOR, one reduction per output, repacked to bytes."""
+    from repro_torch.core.gf import PRIMITIVE_POLY
+    lane16 = np.uint32(0x00010001)
+
+    def reduce_lanes16(acc):
+        for i in range(2 * s - 2, s - 1, -1):
+            acc = acc ^ (((acc >> np.uint32(i)) & lane16)
+                         * np.uint32(PRIMITIVE_POLY[s] << (i - s)))
+        return acc
+
+    n, K = A.shape
+    L = P.shape[1]
+    Pp = np.zeros((K, -(-L // 4) * 4), np.uint8)
+    Pp[:, :L] = P
+    W = Pp.view("<u4")
+    sym_mask = np.uint32(((1 << s) - 1) * 0x00010001)
+    acc02 = np.zeros((n, W.shape[1]), np.uint32)
+    acc13 = np.zeros_like(acc02)
+    for k in range(K):
+        r02, r13 = W[k] & sym_mask, (W[k] >> np.uint32(8)) & sym_mask
+        for r in range(n):
+            for j in range(8):
+                m = np.uint32(0xFFFFFFFF * ((int(A[r, k]) >> j) & 1))
+                acc02[r] ^= (r02 << np.uint32(j)) & m
+                acc13[r] ^= (r13 << np.uint32(j)) & m
+    word = ((reduce_lanes16(acc02) & np.uint32(0x00FF00FF))
+            | ((reduce_lanes16(acc13) & np.uint32(0x00FF00FF))
+               << np.uint32(8)))
+    return np.ascontiguousarray(word).view(np.uint8)[:, :L]
+
+
+@pytest.mark.parametrize("s", range(1, 9))
+def test_unpacked_kernel_lane_arithmetic_matches_pallas(jref, s):
+    """The CUDA kernel cannot run here; its arithmetic can.  Bytes
+    0..255 on both sides, so the unmasked clmul semantics are held."""
+    rng = np.random.default_rng(70 + s)
+    A = rng.integers(0, 256, (3, 4)).astype(np.uint8)
+    P = rng.integers(0, 256, (4, 23)).astype(np.uint8)
+    want = np.asarray(jref.gm.gf_matmul_pallas(A, P, s=s, interpret=True))
+    np.testing.assert_array_equal(_unpacked_kernel_emulated(A, P, s), want)
+
+
+@pytest.mark.parametrize("n,K,L", SHAPES)
+def test_gf2_plain_matches_pallas(jref, n, K, L):
+    rng = np.random.default_rng(n * 100 + K * 10 + L)
+    A = rng.integers(0, 256, (n, K)).astype(np.uint8)    # bit 0 is read
+    P = rng.integers(0, 256, (K, L)).astype(np.uint8)    # raw bytes
+    want = np.asarray(jref.gx.gf2_matmul_pallas(A, P, interpret=True))
+    np.testing.assert_array_equal(np.asarray(jref.ref.gf2_matmul_ref(A, P)),
+                                  want)
+    np.testing.assert_array_equal(tref.gf2_matmul_ref(_t(A), _t(P)).numpy(),
+                                  want)
+    np.testing.assert_array_equal(tgx.gf2_matmul(_t(A), _t(P)).numpy(), want)
+    # every bit-plane is an s=1 product of the coefficient bits
+    for b in range(8):
+        plane = tref.gf_matmul_ref(_t(A & 1), _t((P >> b) & 1), 1).numpy()
+        np.testing.assert_array_equal((want >> b) & 1, plane)
+
+
+@pytest.mark.parametrize("impl", ["auto", "table"])
+def test_gf2_combine_matches_reference(jref, impl):
+    rng = np.random.default_rng(7)
+    A = rng.integers(0, 256, (6, 4)).astype(np.uint8)
+    P = rng.integers(0, 256, (4, 301)).astype(np.uint8)
+    want = np.asarray(jref.ops.gf2_combine(A, P, impl="jnp"))
+    np.testing.assert_array_equal(
+        tops.gf2_combine(_t(A), _t(P), impl=impl).numpy(), want)
+
+
+def test_ops_gf_matmul_goes_through_the_registry():
+    A, P, seeds = _draw(8, 4, 3, 50, 8)
+    want = tref.gf_matmul_ref(_t(A), _t(P), 8)
+    for impl in ("auto", "cuda", "clmul", "table", "cuda_packed"):
+        assert torch.equal(tops.gf_matmul(_t(A), _t(P), s=8, impl=impl),
+                           want), impl
+    got = tops.gf_matmul(tseeds.as_seeds(seeds), _t(P), s=8,
+                         impl="auto_seeded")
+    assert torch.equal(got, tref.gf_matmul_seeded_ref(
+        tseeds.as_seeds(seeds), _t(P), 8))
+    with pytest.raises(ValueError, match="unknown impl"):
+        tops.gf2_combine(_t(A), _t(P), impl="pallas")
+
+
+@pytest.mark.parametrize("kernel", ["unpacked", "gf2"])
+def test_unpacked_wrappers_write_only_their_out_columns(kernel):
+    """The engine hands the wrappers its output's chunk columns."""
+    rng = np.random.default_rng(11)
+    A_t = _t(rng.integers(0, 256, (5, 4)).astype(np.uint8))
+    P_t = _t(rng.integers(0, 256, (4, 301)).astype(np.uint8))
+    if kernel == "unpacked":
+        fn, want = (lambda A, P, out: tgm.gf_matmul_unpacked(A, P, s=8,
+                                                            out=out),
+                    tref.gf_matmul_clmul_ref(A_t, P_t, 8))
+    else:
+        fn, want = (lambda A, P, out: tgx.gf2_matmul(A, P, out=out),
+                    tref.gf2_matmul_ref(A_t, P_t))
+    wide = torch.full((5, 310), 7, dtype=torch.uint8)
+    view = wide[:, 3:304]
+    got = fn(A_t, P_t[:, :301], view)
+    assert got.data_ptr() == view.data_ptr()
+    assert torch.equal(view, want)
+    assert (wide[:, :3] == 7).all() and (wide[:, 304:] == 7).all()
+    # a strided column view of P takes the same path as a dense one
+    P_wide = torch.cat([P_t, P_t], dim=1)
+    assert torch.equal(fn(A_t, P_wide[:, :301], None), want)
+
+
+def test_unpacked_wrappers_on_cpu_launch_nothing_and_check_operands():
+    A = torch.zeros((2, 3), dtype=torch.uint8)
+    P = torch.zeros((3, 8), dtype=torch.uint8)
+    before = {**tgm.launch_counts(), **{f.__name__: f.launches
+                                        for f in tgx.WRAPPERS}}
+    assert tgm.gf_matmul_unpacked(A, P, s=4).shape == (2, 8)
+    assert tgx.gf2_matmul(A, P).shape == (2, 8)
+    assert tgx.gf2_matmul(A, P[:, :0]).shape == (2, 0)
+    after = {**tgm.launch_counts(), **{f.__name__: f.launches
+                                       for f in tgx.WRAPPERS}}
+    assert after == before
+    with pytest.raises(ValueError, match="over GF\\(2\\)"):
+        tgx.gf2_matmul(A, P, s=8)
+    with pytest.raises(ValueError, match="A must be"):
+        tgx.gf2_matmul(torch.zeros((2, 4), dtype=torch.uint8), P)
+    with pytest.raises(ValueError, match="unsupported field"):
+        tgm.gf_matmul_unpacked(A, P, s=0)
+    with pytest.raises(ValueError, match="out must be"):
+        tgx.gf2_matmul(A, P, out=torch.empty((2, 7), dtype=torch.uint8))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [1, 2, 4, 8])
 def test_cuda_kernels_match_plain_versions(cuda_device, s):
@@ -198,10 +377,44 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s):
                                             out=wide_out[:, off:off + L])
         torch.cuda.synchronize()
         launched = 1 if L else 0
-        assert tgm.launch_counts() == {
-            k: v + launched for k, v in before.items()}
+        after = tgm.launch_counts()
+        for name in ("gf_matmul_packed", "gf_matmul_packed_seeded"):
+            assert after[name] == before[name] + launched
         assert torch.equal(got, tref.gf_matmul_packed_ref(A, P, s))
         assert torch.equal(got_s,
                            tref.gf_matmul_packed_seeded_ref(seeds, P, s))
+        assert not wide_out[:, :off].any() and \
+            not wide_out[:, off + L:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 8])
+def test_cuda_unpacked_kernels_match_plain_versions(cuda_device, s):
+    """`gf_matmul_unpacked` (bytes 0..255, so >= 2^s too) and
+    `gf2_matmul` (A bytes 0..255, raw P bytes) == their plain versions
+    on the card, byte for byte: ragged L, n over one row tile, views at
+    offsets 0, 3 and 4 of P and of the output, K = 1 and L = 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(10 + s)
+    for n, K, L, off in [(8, 8, 1 << 16, 0), (10, 8, 1001, 0),
+                         (19, 7, 1030, 3), (3, 5, 4097, 4), (5, 1, 13, 0),
+                         (4, 4, 0, 0)]:
+        wide = torch.randint(0, 256, (K, L + off + 4), generator=g,
+                             device=cuda_device, dtype=torch.uint8)
+        P = wide[:, off:off + L]
+        A = torch.randint(0, 256, (n, K), generator=g, device=cuda_device,
+                          dtype=torch.uint8)
+        wide_out = torch.zeros((n, L + off + 4), device=cuda_device,
+                               dtype=torch.uint8)
+        before = tgm.gf_matmul_unpacked.launches, tgx.gf2_matmul.launches
+        got = tgm.gf_matmul_unpacked(A, P, s=s,
+                                     out=wide_out[:, off:off + L])
+        got2 = tgx.gf2_matmul(A, P)
+        torch.cuda.synchronize()
+        launched = 1 if L else 0
+        assert (tgm.gf_matmul_unpacked.launches,
+                tgx.gf2_matmul.launches) == (before[0] + launched,
+                                             before[1] + launched)
+        assert torch.equal(got, tref.gf_matmul_clmul_ref(A, P, s))
+        assert torch.equal(got2, tref.gf2_matmul_ref(A, P))
         assert not wide_out[:, :off].any() and \
             not wide_out[:, off + L:].any()
