@@ -31,16 +31,32 @@ failing on the first wrong result:
    fused round must equal the stage-wise oracle, one must be flagged,
    and `rounds_to_recovery` must accept a correct decode;
 6. phase 3's payload through the `cuda` kernels behind a 2-hop
-   recoding channel (the RowMix path): s = 8 on P, s = 1 on P & 1.
+   recoding channel (the RowMix path): s = 8 on P, s = 1 on P & 1;
+7. Qwen3-4B serving at full width and depth (36 layers, bf16 weights
+   from a seed): B = 4 prompts of 2,048 token ids through
+   `make_prefill_step` (cache 2,048 + 32), then 32 greedy steps through
+   `make_serve_step`.  Each prefill must launch the flash kernel once
+   per layer and every logit must be finite.  The first decode step's
+   logits must agree with a fresh `forward_hidden` on the grown
+   sequence: on the bf16 weights as served within 0.25, the timed serve
+   step's first token and log-prob too, and on the same weights in
+   float32 within rtol = atol = 1e-3; with the same greedy token
+   wherever the fresh top-2 margin is clear of the tolerance.
 
-Each of phases 2-6 drives the main path with every launch count set to
+Phase 1 also holds the flash-attention kernel against its plain version
+in float32 and bf16: head_dim 32, 64, 128, GQA groups 1 and 4, S = 1,
+ragged S (100, 2049), non-causal, strided views and phase 7's shape.
+
+Each of phases 2-7 drives the main path with every launch count set to
 0 just before it and read just after, and fails if a kernel of that
-path was not launched.  Then it traces one round per 500M configuration
-with torch.profiler (device busy share, device time per kernel), times
-each kernel and its plain version at the chunk shape (8 x 262,144) with
+path was not launched.  Then it traces one round per 500M configuration,
+one prefill and one serve step with torch.profiler (device busy share, device time per
+kernel), times each GF kernel and its plain version at the chunk shape
+(8 x 262,144) and the flash kernel, its plain version and PyTorch's
+`scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-6), error, time, plain time and bound.  The last line is
+2-7), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -63,8 +79,10 @@ SRC = ROOT / "src"
 # Published H100 SXM peaks (700 W).  HBM: 3.35 TB/s.  int32: 64 int32
 # lanes per SM (Hopper white paper) x 132 SMs x 1.98 GHz, the clock at
 # which the data sheet's 67 TFLOP/s float32 (128 lanes x 2 FLOP) holds.
+# bf16: the dense tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+BF16_FLOP_PER_S = 989.4e12
 
 # Least int32 operations of the xtime ladder: an xtime is at least 4
 # (shift, mask, shift-and-mask, conditional reduce), a bit-select at
@@ -94,7 +112,30 @@ SEED_BYZ = 0                     # byzantine plan, phase 5
 SEED_BYZ_ROUND = 0               # coding rows, phase 5
 SEED_MIX = 0                     # coding rows, phase 6
 SEED_HOP = 1                     # 2-hop plan, phase 6
-KERNEL_SOURCES = ("gf_matmul", "gf2_xor")   # csrc/<name>.cu
+# phase 7: Qwen3-4B serving
+QWEN = "qwen3-4b"
+QWEN_BATCH = 4
+QWEN_PROMPT = 2048
+QWEN_DECODE = 32                 # greedy steps; the cache holds prompt + these
+SEED_QWEN = 5                    # weights, drawn on the card
+SEED_PROMPT = 6                  # prompt token ids
+# cached decode vs fresh forward, float32 model: 36 layers of float32
+# products summed in other orders (one row against 8,196), far below a
+# bf16 step (2^-8) at unit scale, so a wrong slot, position or mask shows
+DECODE_TOL = {"rtol": 1e-3, "atol": 1e-3}
+# cached decode vs fresh forward, the bf16 model as served: the two differ
+# by rounding of two GEMM shapes (M = 4 against M = 8,196) through 36
+# layers of a bf16 residual stream, 0.083 on logits up to 4.75 on an H100
+# 80GB HBM3 at 700 W; a wrong slot, position or mask moves logits by more
+DECODE_TOL_BF16 = 0.25
+# flash kernel vs its plain version on the card: both accumulate in
+# float32 from the same inputs over the same tiles, so in bf16 they differ
+# by the output's rounding, at most one bf16 step (2^-7 relative) above
+# float32 noise; the CPU tests hold the plain version to the reference's
+# `_attend` at 5e-2 in bf16, a different computation
+FLASH_TOL = {torch.float32: {"rtol": 2e-4, "atol": 2e-4},
+             torch.bfloat16: {"rtol": 1e-2, "atol": 1e-3}}
+KERNEL_SOURCES = ("gf_matmul", "gf2_xor", "flash_attention")  # csrc/<name>.cu
 
 
 def fail(msg: str) -> None:
@@ -212,6 +253,58 @@ def phase1(gk, gx, ref, seeds_mod) -> dict[str, int]:
           f"1,2,3,4,8 on s-bit symbols and on bytes >= 2^s; gf2 on A bytes "
           f"0..255), max_abs_err={worst}")
     return worst
+
+
+def phase1_flash(fa, ref, attn) -> dict[str, float]:
+    """The flash kernel == its plain version on the card within
+    FLASH_TOL (and, in float32 at small S, == the plain masked softmax
+    `_attend`); returns the max |error| in float32 units."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = [(2, S, H, KV, hd, True) for hd in (32, 64, 128)
+             for H, KV in ((4, 4), (8, 2)) for S in (1, 100, 2049)]
+    cases += [(1, 256, 8, 2, 128, False)]
+    worst, used = {}, {}       # max |err|, max |err| / (atol + rtol |want|)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[dtype]
+        shapes = cases + ([(QWEN_BATCH, QWEN_PROMPT, 32, 8, 128, True)]
+                          if dtype == torch.bfloat16 else [])
+        worst[dtype] = used[dtype] = 0.0
+        for B, S, H, KV, hd, causal in shapes:
+            # q, k, v as head slices of one fused tensor: strided views
+            fused = torch.randn((B, S, H + 2 * KV, hd), generator=g,
+                                device=dev).to(dtype)
+            q, k, v = (fused[:, :, :H], fused[:, :, H:H + KV],
+                       fused[:, :, H + KV:])
+            got = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            what = (f"{str(dtype)[6:]} (B,S,H,KV,hd)={(B, S, H, KV, hd)} "
+                    f"causal={causal}")
+            check(got.shape == (B, S, H, hd) and got.dtype == dtype,
+                  f"flash_attention {what}: {got.dtype} {tuple(got.shape)}")
+            want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+            diff = (got.float() - want).abs()
+            err = float(diff.max())
+            worst[dtype] = max(worst[dtype], err)
+            used[dtype] = max(used[dtype], float(
+                (diff / (tol["atol"] + tol["rtol"] * want.abs())).max()))
+            check(torch.allclose(got.float(), want, **tol),
+                  f"flash_attention {what} differs from its plain version "
+                  f"(max |err| {err}, tolerance {tol})")
+            if dtype == torch.float32 and S <= 100:
+                groups = H // KV
+                plain = attn._attend(q, attn._expand_kv(k, groups),
+                                     attn._expand_kv(v, groups),
+                                     causal=causal, window=None, q_offset=0)
+                check(torch.allclose(got, plain, **tol),
+                      f"flash_attention {what} differs from _attend")
+    print(f"phase 1: flash_attention == plain version, {len(cases)} shapes "
+          f"in each dtype + the phase-7 shape in bf16 (hd 32/64/128, groups "
+          f"1 and 4, S 1/100/2049, non-causal S=256, strided views): "
+          + "; ".join(f"{str(dt)[6:]} tolerance {FLASH_TOL[dt]}, max_abs_err="
+                      f"{worst[dt]}, largest share of the tolerance used "
+                      f"{used[dt]:.4f}" for dt in worst))
+    return {"flash_attention": max(worst.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -429,27 +522,220 @@ def phase6(wrappers, P: torch.Tensor, P1: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: Qwen3-4B serving at full width and depth
+# ---------------------------------------------------------------------------
+
+def qwen_model(cfg, device="cuda"):
+    """(params, prompt): bf16 weights at the reference's scales and
+    B x S prompt token ids, both drawn from seeds on `device`."""
+    from repro_torch.models import transformer as tf
+
+    params = tf.init_lm(torch.Generator(device=device).manual_seed(SEED_QWEN),
+                        cfg, device=device)
+    prompt = torch.randint(
+        0, cfg.vocab_size, (QWEN_BATCH, QWEN_PROMPT), device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED_PROMPT))
+    return params, prompt
+
+
+def greedy(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """The first generated token: argmax over the real vocabulary."""
+    return logits[..., :cfg.vocab_size].float().argmax(dim=-1)
+
+
+def decode_vs_fresh(fa, cfg, params, prompt, once_per_layer):
+    """One decode step after the prompt through the cache, and a fresh
+    forward pass over the grown sequence: (cached logits, fresh logits,
+    the first generated token), logits float32 at the last position."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+
+    step = make_prefill_step(cfg, cache_len=QWEN_PROMPT + QWEN_DECODE)
+    logits, cache = once_per_layer(
+        "prefill", lambda: step(params, {"tokens": prompt}))
+    check(bool(torch.isfinite(logits).all()), "phase 7: non-finite logits")
+    first = greedy(logits, cfg)
+    dec, cache = tf.decode_step(params, first, cache, cfg)
+    del cache
+    h, _ = once_per_layer("forward_hidden", lambda: tf.forward_hidden(
+        params, torch.cat([prompt, first], dim=1), cfg))
+    fresh = tf._lm_logits(params, h[:, -1:], cfg).float()
+    dec = dec.float()
+    check(bool(torch.isfinite(dec).all()) and
+          bool(torch.isfinite(fresh).all()), "phase 7: non-finite logits")
+    return dec, fresh, first
+
+
+def clear_margin(fresh: torch.Tensor, cfg, tol: dict) -> torch.Tensor:
+    """(B, 1) bool: requests whose fresh top-2 margin exceeds twice the
+    logits' tolerance, where logits within it cannot change the argmax."""
+    top2 = fresh[..., :cfg.vocab_size].topk(2, dim=-1).values
+    bound = tol["atol"] + tol["rtol"] * top2.abs().amax(dim=-1)
+    return (top2[..., 0] - top2[..., 1]) > 2 * bound
+
+
+def held_to_fresh(dec, fresh, cfg, tol: dict, what: str) -> tuple[float, int]:
+    """Cached-decode logits == fresh ones within `tol`, and the same
+    greedy token wherever the margin is clear; (max |err|, requests with
+    a clear margin)."""
+    err = float((dec - fresh).abs().max())
+    check(torch.allclose(dec, fresh, **tol),
+          f"phase 7: {what} cached decode logits differ from a fresh "
+          f"forward (max |err| {err}, tolerance {tol})")
+    clear = clear_margin(fresh, cfg, tol)
+    check(torch.equal(greedy(dec, cfg)[clear], greedy(fresh, cfg)[clear]),
+          f"phase 7: {what} cached and fresh greedy tokens differ at a "
+          f"clear margin")
+    return err, int(clear.sum())
+
+
+def phase7(fa, cfg, params, prompt) -> dict:
+    """Prefill + greedy decode through the serving steps; checks the
+    kernel's launches per prefill and finite logits, and holds the
+    cached decode against a fresh forward: in bf16 as served
+    (DECODE_TOL_BF16, also the timed serve step's first token and
+    log-prob) and on the same weights in float32 (DECODE_TOL).  Returns
+    the measurements."""
+    from repro_torch.core import packets as pkt
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    cache_len = QWEN_PROMPT + QWEN_DECODE
+    prefill_step = make_prefill_step(cfg, cache_len=cache_len)
+    serve_step = make_serve_step(cfg)
+
+    def once_per_layer(what, run):
+        before = fa.flash_attention.launches
+        out = run()
+        launched = fa.flash_attention.launches - before
+        check(launched == cfg.num_layers,
+              f"phase 7 {what}: flash_attention launched {launched} times, "
+              f"not once per layer ({cfg.num_layers})")
+        return out
+
+    # bf16, also the warm-up: cached decode vs fresh forward
+    tol16 = {"rtol": 0.0, "atol": DECODE_TOL_BF16}
+    dec, fresh, first = decode_vs_fresh(fa, cfg, params, prompt,
+                                        once_per_layer)
+    bf16_err, bf16_clear = held_to_fresh(dec, fresh, cfg, tol16, "bf16")
+    bf16_scale = float(fresh.abs().max())
+    del dec
+
+    # the serving run: prefill, then greedy decode through the serve step
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = once_per_layer(
+        "prefill", lambda: prefill_step(params, {"tokens": prompt}))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = greedy(logits, cfg)
+    tokens, logps = [tok], []
+    t0 = time.perf_counter()
+    for _ in range(QWEN_DECODE):
+        tok, lp, cache = serve_step(params, cache, tok)
+        tokens.append(tok)
+        logps.append(lp)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    logps = torch.cat(logps, dim=1)
+    check(bool(torch.isfinite(logits).all()) and
+          bool(torch.isfinite(logps).all()),
+          "phase 7: non-finite logits or log-probs")
+    check(all(c["pos"] == cache_len for c in cache),
+          "phase 7: the caches do not hold prompt + decoded tokens")
+    del cache, logits
+
+    # the timed run's first serve step against the same fresh forward,
+    # where its prompt token is the warm-up's: through what the step
+    # returns, its token (at a clear margin) and its log-prob (a
+    # log-softmax moves by at most twice the logits' largest change)
+    same = tokens[0] == first
+    fresh_lp = torch.log_softmax(fresh[..., :cfg.vocab_size], dim=-1)
+    want_lp = fresh_lp.gather(-1, tokens[1][..., None].long())[..., 0]
+    lp_err = float((logps[:, :1] - want_lp)[same].abs().max()) \
+        if bool(same.any()) else 0.0
+    check(lp_err <= 2 * DECODE_TOL_BF16,
+          f"phase 7: the timed serve step's log-prob differs from the fresh "
+          f"forward's by {lp_err} (limit {2 * DECODE_TOL_BF16})")
+    sure = same & clear_margin(fresh, cfg, tol16)
+    check(torch.equal(tokens[1][sure].long(), greedy(fresh, cfg)[sure]),
+          "phase 7: the timed serve step's token differs from the fresh "
+          "forward's at a clear margin")
+    n_same, n_sure = int(same.sum()), int(sure.sum())
+    del fresh, fresh_lp
+
+    # the same weights in float32: cached decode == fresh forward
+    cfg32 = cfg.with_overrides(dtype=torch.float32)
+    params32 = pkt.tree_map(lambda t: t.float(), params)
+    dec, fresh, _ = decode_vs_fresh(fa, cfg32, params32, prompt,
+                                    once_per_layer)
+    del params32
+    f32_err, f32_clear = held_to_fresh(dec, fresh, cfg, DECODE_TOL,
+                                       "float32")
+    del dec, fresh
+    out = {"prefill_s": prefill_s, "decode_ms": decode_s / QWEN_DECODE * 1e3,
+           "peak": peak}
+    print(f"phase 7: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd="
+          f"{cfg.resolved_head_dim} bf16, B={QWEN_BATCH} prompt "
+          f"{QWEN_PROMPT} cache {cache_len}: prefill {prefill_s:.6f} s "
+          f"(synchronized), {QWEN_BATCH * QWEN_PROMPT / prefill_s:.1f} prompt "
+          f"tokens/s; {QWEN_DECODE} greedy serve steps "
+          f"{out['decode_ms']:.3f} ms/step, "
+          f"{QWEN_BATCH * 1e3 / out['decode_ms']:.1f} tokens/s; "
+          f"max_memory_allocated {peak} bytes; tokens of request 0: "
+          f"{torch.cat(tokens, 1)[0, :8].tolist()}...; mean log-prob "
+          f"{float(logps.mean()):.4f}")
+    print(f"phase 7: first decode step vs fresh forward_hidden on the grown "
+          f"sequence (held): bf16 max |err| {bf16_err} on logits up to "
+          f"{bf16_scale} (tolerance {tol16}), greedy tokens compared in "
+          f"{bf16_clear} of {QWEN_BATCH} requests (clear margin); timed "
+          f"serve step: prompt token as the warm-up's in {n_same}, log-prob "
+          f"max |err| {lp_err} (limit {2 * DECODE_TOL_BF16}), token compared "
+          f"in {n_sure}; float32 max |err| {f32_err} (tolerance "
+          f"{DECODE_TOL}), tokens compared in {f32_clear}")
+    return out
+
+
+def trace_serving(cfg, params, prompt) -> None:
+    """Profile one prefill (device busy share, the flash kernel's share
+    of device time) and one greedy serve step after it."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    step = make_prefill_step(cfg, cache_len=QWEN_PROMPT + QWEN_DECODE)
+    out = []
+    per_name = device_profile("prefill", lambda: out.append(step(
+        params, {"tokens": prompt})))
+    total = sum(per_name.values())
+    flash = sum(t for name, t in per_name.items()
+                if "flash_attention_kernel" in name)
+    check(flash > 0, "trace prefill: no flash_attention_kernel on the card")
+    print(f"trace prefill: flash_attention_kernel {flash:.1f} us of "
+          f"{total:.1f} us device time ({100 * flash / total:.2f}%)")
+    logits, cache = out.pop()
+    serve_step = make_serve_step(cfg)
+    tok, _, cache = serve_step(params, cache, greedy(logits, cfg))  # warm
+    device_profile("serve step", lambda: serve_step(params, cache, tok))
+
+
+# ---------------------------------------------------------------------------
 # where a round's time goes: one traced round per 500M configuration
 # ---------------------------------------------------------------------------
 
-def trace_round(label: str, eng, P: torch.Tensor, seed: int,
-                make_channel) -> None:
-    """Profile one round: device busy time (the union of device
-    activity), its share of the traced wall time, and the device time
-    per kernel name."""
+def device_profile(label: str, run) -> dict[str, float]:
+    """Profile `run()`: device busy time (the union of device activity),
+    its share of the traced wall time, and the device time per kernel
+    name; returns the device time (us) per full kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = eng.round(P, torch.Generator().manual_seed(seed),
-                        channel=make_channel())
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    check(out.ok and torch.equal(out.packets, P),
-          f"traced round {label}: P_hat != P")
-    del out
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
@@ -462,15 +748,27 @@ def trace_round(label: str, eng, P: torch.Tensor, seed: int,
             lo, hi = s, e
         else:
             hi = max(hi, e)
-        per_name.setdefault(name[:72], []).append(e - s)
+        per_name.setdefault(name, []).append(e - s)
     busy += hi - lo
     print(f"trace {label}: traced wall {wall_us:.1f} us, device busy "
           f"{busy:.1f} us ({100 * busy / wall_us:.2f}% of the wall, "
           f"idle {100 - 100 * busy / wall_us:.2f}%), "
           f"{len(spans)} device activities")
-    for name, d in sorted(per_name.items(), key=lambda x: -sum(x[1])):
+    ranked = sorted(per_name.items(), key=lambda x: -sum(x[1]))
+    for name, d in ranked[:12]:
         print(f"trace {label}:   {sum(d):.1f} us in {len(d)} x "
-              f"{name} (mean {sum(d) / len(d):.3f} us)")
+              f"{name[:72]} (mean {sum(d) / len(d):.3f} us)")
+    return {name: sum(d) for name, d in per_name.items()}
+
+
+def trace_round(label: str, eng, P: torch.Tensor, seed: int,
+                make_channel) -> None:
+    """Profile one round (`device_profile`) and check its decode."""
+    out = []
+    device_profile(label, lambda: out.append(eng.round(
+        P, torch.Generator().manual_seed(seed), channel=make_channel())))
+    check(out[0].ok and torch.equal(out[0].packets, P),
+          f"traced round {label}: P_hat != P")
 
 
 def trace_rounds(P: torch.Tensor, P1: torch.Tensor) -> None:
@@ -595,6 +893,69 @@ def time_kernels(gk, gx, ref, P: torch.Tensor) -> dict:
     return out
 
 
+def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
+                   itemsize: int) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, bytes, FLOPs) of causal attention: the
+    two products over the S(S+1)/2 live (query, key) pairs of each head
+    at the bf16 tensor-core rate, or q, k, v read and o written once."""
+    flops = 4 * hd * B * H * S * (S + 1) / 2
+    n_bytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * itemsize
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes
+            else "bytes", n_bytes, flops)
+
+
+def time_flash(fa, ref) -> dict:
+    """The flash kernel, its plain version and PyTorch's fused attention
+    (the yardstick; the port never calls it) at phase 7's shape, bf16."""
+    import torch.nn.functional as F
+
+    B, S, H, KV, hd = QWEN_BATCH, QWEN_PROMPT, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qkv = [torch.randn((B, S, n, hd), generator=g, device="cuda").to(
+        torch.bfloat16) for n in (H, KV, KV)]
+    # the library call takes (B, H, S, hd) with K and V expanded; the
+    # layout change is made once, outside the timing
+    lib_in = [x.transpose(1, 2).repeat_interleave(H // x.shape[2], dim=1)
+              .contiguous() for x in qkv]
+    got = fa.flash_attention(*qkv)
+    lib = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+    torch.cuda.synchronize()
+    lib_err = float((got.float() - lib.transpose(1, 2).float()).abs().max())
+    del got, lib
+
+    def run_kernel(x):
+        return fa.flash_attention(*x)
+
+    def run_plain(x):
+        return ref.flash_attention_ref(*x)
+
+    def run_lib(x):
+        return F.scaled_dot_product_attention(*x, is_causal=True)
+
+    # in turns: plain, kernel, library, library, kernel, plain
+    plain_a = time_launches(run_plain, [qkv], 2)
+    ms = time_launches(run_kernel, [qkv], 20)
+    lib_a = time_launches(run_lib, [lib_in], 50)
+    lib_b = time_launches(run_lib, [lib_in], 50)
+    ms_b = time_launches(run_kernel, [qkv], 20)
+    plain_b = time_launches(run_plain, [qkv], 2)
+    b_ms, b_by, n_bytes, flops = flash_bound_ms(B, S, H, KV, hd, 2)
+    kernel_ms = min(ms, ms_b)
+    print(f"timing flash_attention at (B,S,H,KV,hd)=({B},{S},{H},{KV},{hd}) "
+          f"bf16 causal: kernel {ms:.6f} / {ms_b:.6f} ms, plain "
+          f"{plain_a:.6f} / {plain_b:.6f} ms, scaled_dot_product_attention "
+          f"{lib_a:.6f} / {lib_b:.6f} ms (max |kernel - library| "
+          f"{lib_err}), bound {b_ms:.6f} ms by {b_by} ({n_bytes:.0f} bytes, "
+          f"{flops:.0f} FLOP), {flops / kernel_ms / 1e9:.3f} TFLOP/s, "
+          f"{100 * b_ms / kernel_ms:.3f}% of the {b_by} bound, "
+          f"{kernel_ms / min(lib_a, lib_b):.2f}x the library call")
+    return {"ms": kernel_ms, "plain_ms": min(plain_a, plain_b),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": min(lib_a, lib_b)}
+
+
 def launch_counts(wrappers) -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in wrappers}
 
@@ -619,10 +980,13 @@ def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from the repository")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
     from repro_torch.core import seeds as seeds_mod
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gf2_xor as gx
     from repro_torch.kernels import gf_matmul as gk
+    from repro_torch.models import attention as attn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -633,6 +997,7 @@ def main() -> None:
         libs = list(pool.map(build.build, KERNEL_SOURCES))
     gk._lib()
     gx._lib()
+    fa._lib()
     print(f"build: {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(build.NVCC_FLAGS)})")
@@ -643,8 +1008,9 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas: {line.strip()}")
 
-    wrappers = gk.WRAPPERS + gx.WRAPPERS
+    wrappers = gk.WRAPPERS + gx.WRAPPERS + fa.WRAPPERS
     errors = phase1(gk, gx, ref, seeds_mod)
+    errors.update(phase1_flash(fa, ref, attn))
     cnn = cnn_clients()
     packed = ("gf_matmul_packed", "gf_matmul_packed_seeded")
     runs = [
@@ -656,34 +1022,50 @@ def main() -> None:
                   lambda: phase5(cnn[1])),
     ]
     P = runs[1][1]
+    runs[1] = (runs[1][0], None)
     P1 = P & 1
     runs.append(main_path("phase 6", wrappers,
                           ("gf_matmul_unpacked", "gf2_matmul"),
                           lambda: phase6(wrappers, P, P1)))
+    trace_rounds(P, P1)
+    del P1
+    times = time_kernels(gk, gx, ref, P)
+    del P                 # 4 GB of payload: free it before phase 7
+    torch.cuda.empty_cache()
+
+    cfg = get_config(QWEN)
+    params, prompt = qwen_model(cfg)
+    counts7, _ = main_path("phase 7", wrappers, ("flash_attention",),
+                           lambda: phase7(fa, cfg, params, prompt))
+    runs.append((counts7, None))
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-6)")
+          + " (phases 2-7)")
+    trace_serving(cfg, params, prompt)
+    del params, prompt
+    torch.cuda.empty_cache()
+    times["flash_attention"] = time_flash(fa, ref)
 
-    trace_rounds(P, P1)
-    del P1
-    times = time_kernels(gk, gx, ref, P)
     gm_py = "src/repro/kernels/gf_matmul.py"
     replaces = {"gf_matmul_packed": f"{gm_py}:204",
                 "gf_matmul_packed_seeded": f"{gm_py}:286",
                 "gf_matmul_unpacked": f"{gm_py}:93",
-                "gf2_matmul": "src/repro/kernels/gf2_xor.py:33"}
-    source = {"gf2_matmul": "src/repro_torch/kernels/csrc/gf2_xor.cu"}
+                "gf2_matmul": "src/repro/kernels/gf2_xor.py:33",
+                "flash_attention": "src/repro/kernels/flash_attention.py:78"}
+    csrc = "src/repro_torch/kernels/csrc"
+    source = {"gf2_matmul": f"{csrc}/gf2_xor.cu",
+              "flash_attention": f"{csrc}/flash_attention.cu"}
     report = {"kernels": [{
         "name": name, "route": "cuda",
-        "source": source.get(name,
-                             "src/repro_torch/kernels/csrc/gf_matmul.cu"),
+        "source": source.get(name, f"{csrc}/gf_matmul.cu"),
         "replaces": replaces[name], "launches": counts[name],
         "max_abs_err": errors[name], "ms": times[name]["ms"],
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],
-        "bound_by": times[name]["bound_by"], "library_ms": None,
+        "bound_by": times[name]["bound_by"],
+        "library_ms": times[name].get("library_ms"),
     } for name in counts]}
     print(card)                                # as nvidia-smi prints it
     print(json.dumps(report))

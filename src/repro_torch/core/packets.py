@@ -1,12 +1,12 @@
 """Packetization: parameter trees <-> GF(2^s) symbol packets.
 
 The port of `repro.core.packets` (bit-exact path).  A parameter tree is
-a nested dict of tensors; it flattens in JAX's leaf order (dict keys
-sorted at every level), and every leaf is bitcast to its raw
+a nested dict (or list) of tensors; it flattens in JAX's leaf order
+(dict keys sorted at every level, lists in order), and every leaf is bitcast to its raw
 little-endian bytes in its own layout, so the (K, L) symbol matrix P is
 byte-identical to the reference's for the same parameters.
 `params_from_jax` carries a JAX parameter pytree across (as numpy
-arrays) without touching its layouts.
+arrays) without touching its layouts or bits.
 """
 from __future__ import annotations
 
@@ -17,13 +17,14 @@ import numpy as np
 import torch
 
 # ---------------------------------------------------------------------------
-# trees: nested dicts of tensors, flattened by sorted key (JAX's order)
+# trees: nested dicts (and lists) of tensors, flattened in JAX's order
 # ---------------------------------------------------------------------------
 
 
 def tree_flatten(tree) -> tuple[list[torch.Tensor], Any]:
-    """(leaves, treedef) in sorted-key order.  The treedef is the
-    nested dict skeleton with None at every leaf."""
+    """(leaves, treedef) in JAX's order: dicts by sorted key, lists and
+    tuples in order.  The treedef is the nested skeleton with None at
+    every leaf."""
     if isinstance(tree, dict):
         leaves: list[torch.Tensor] = []
         treedef = {}
@@ -31,6 +32,13 @@ def tree_flatten(tree) -> tuple[list[torch.Tensor], Any]:
             sub, treedef[key] = tree_flatten(tree[key])
             leaves.extend(sub)
         return leaves, treedef
+    if isinstance(tree, (list, tuple)):
+        leaves, subdefs = [], []
+        for item in tree:
+            sub, subdef = tree_flatten(item)
+            leaves.extend(sub)
+            subdefs.append(subdef)
+        return leaves, type(tree)(subdefs)
     if not isinstance(tree, torch.Tensor):
         raise TypeError(f"tree leaves must be tensors, got {type(tree)}")
     return [tree], None
@@ -42,7 +50,9 @@ def tree_unflatten(treedef, leaves) -> Any:
     def build(d):
         if d is None:
             return next(it)
-        return {k: build(v) for k, v in d.items()}
+        if isinstance(d, dict):
+            return {k: build(v) for k, v in d.items()}
+        return type(d)(build(v) for v in d)
 
     return build(treedef)
 
@@ -55,14 +65,28 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
                                     zip(leaves, *others, strict=True)])
 
 
-def params_from_jax(tree, device="cpu") -> Any:
+def params_from_jax(tree, device="cuda", *, bf16_bits: bool = False) -> Any:
     """A JAX parameter pytree, given as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``), as the port's
-    nested dict of tensors.  Layouts and dtypes stay as they are (conv
-    `w` stays HWIO), so the packet bytes equal the reference's."""
+    nested dicts, lists and tuples of tensors.  Layouts and dtypes stay
+    as they are (conv `w` stays HWIO), so the packet bytes equal the
+    reference's.  A leaf of numpy's bfloat16 extension dtype (what
+    ``np.asarray`` gives for a JAX bf16 array) becomes ``torch.bfloat16``
+    bit for bit.  With `bf16_bits`, the tree's ``uint16``/``int16``
+    leaves are bf16 leaves' views and are reinterpreted as
+    ``torch.bfloat16``; without it, they stay the integers they are."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+        return {k: params_from_jax(v, device, bf16_bits=bf16_bits)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device, bf16_bits=bf16_bits)
+                          for v in tree)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16" or (bf16_bits and
+                                      a.dtype in (np.uint16, np.int16)):
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 @dataclass(frozen=True)

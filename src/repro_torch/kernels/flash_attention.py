@@ -1,0 +1,123 @@
+"""Causal flash attention: CUDA kernel and wrapper.
+
+The attention of every prefill and forward call of the LM serving path.
+One hand-written Hopper kernel lives in `csrc/flash_attention.cu`:
+
+* `flash_attention(q, k, v, causal=)` — replaces the TPU kernel
+  `repro.kernels.flash_attention.flash_attention_folded` (and its
+  wrapper `flash_attention`): online-softmax attention with scale
+  1/sqrt(hd), float32 scores and accumulator, key tiles above the
+  diagonal skipped.
+
+It takes q (B, S, H, hd) and k, v (B, S, KV, hd) as the model makes them
+(no fold, no transpose: the kernel reads strides) and indexes KV head
+h // (H // KV) instead of expanding K and V.  The ragged last tile is
+masked in the kernel, so S is not padded.  As in the reference, the
+non-causal case needs S to be a multiple of the reference's block (128)
+and raises ValueError otherwise.
+
+The wrapper decides by the tensor's device alone: a CPU tensor runs the
+plain version `ref.flash_attention_ref`, a CUDA tensor launches the
+kernel or raises.  It counts its launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import ref
+
+#: the reference's default blocks: the non-causal contract's multiple
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+HEAD_DIMS = (32, 64, 128)          # the kernel's template instances
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_SIGNATURE = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+              + [ctypes.c_longlong] * 12
+              + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library with its C functions' types declared."""
+    from . import build
+
+    lib = build.load("flash_attention")
+    lib.flash_attention.argtypes = _SIGNATURE
+    lib.flash_attention.restype = ctypes.c_int
+    lib.flash_error_string.argtypes = [ctypes.c_int]
+    lib.flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> None:
+    """Raise on what the kernel does not take (on every device, so the
+    CPU path keeps the card's contract)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D (B, S, heads, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != hd:
+        raise ValueError(f"k and v must be ({B}, {S}, KV, {hd}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
+                         f"heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one the kernel is built "
+                         f"for {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if not causal and S % max(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K):
+        raise ValueError("non-causal flash requires S % block == 0 "
+                         "(zero-padded keys would receive attention)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """softmax(q·kᵀ/sqrt(hd))·v per head: q (B, S, H, hd), k and v
+    (B, S, KV, hd) with H a multiple of KV -> (B, S, H, hd) in q's dtype.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors run
+    `ref.flash_attention_ref`.
+    """
+    check_operands(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    B, S, H, hd = q.shape
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, S, H, k.shape[2], hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], int(causal), 1.0 / math.sqrt(hd),
+        q.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
+                           f"({lib.flash_error_string(err).decode()})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+#: every hand-written kernel wrapper of this module
+WRAPPERS = (flash_attention,)

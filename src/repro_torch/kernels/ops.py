@@ -1,7 +1,8 @@
-"""Public GF coding entry points over the kernels.
+"""Public entry points over the kernels.
 
-The port of `repro.kernels.ops` (flash attention, on the LM side, is
-not here).  Backend choice is the engine registry's
+The port of `repro.kernels.ops`: `flash_attention` is the causal
+attention kernel's wrapper (`kernels.flash_attention`).  Backend choice
+for the GF products is the engine registry's
 (`repro_torch.engine.registry`): `gf_matmul` resolves a registry name,
 and `gf2_combine` is the GF(2) byte-stream combine with its own two
 names:
@@ -15,7 +16,10 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import flash_attention
 from .gf2_xor import gf2_matmul
+
+__all__ = ["flash_attention", "gf2_combine", "gf_matmul"]
 
 
 def gf_matmul(A, P, *, s: int = 8, impl: str = "auto") -> torch.Tensor:

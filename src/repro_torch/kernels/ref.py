@@ -13,9 +13,13 @@ the card:
 * `gf_matmul_clmul_ref` — one symbol per int32 lane, carry-less
   multiply then reduction by the primitive polynomial
   (`gf_matmul_unpacked`);
-* `gf2_matmul_ref` — the GF(2) masked XOR on raw bytes (`gf2_matmul`).
+* `gf2_matmul_ref` — the GF(2) masked XOR on raw bytes (`gf2_matmul`);
+* `flash_attention_ref` — causal online-softmax attention over key
+  tiles (`flash_attention`), held against the reference's `_attend`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -136,3 +140,61 @@ def gf_matmul_packed_seeded_ref(seeds: torch.Tensor, P: torch.Tensor,
         return (byte & mask).to(torch.int32)[:, None]
 
     return unpack_lanes(_ladder(coeff_of, pack_lanes(P), n, K, s), L)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_BLOCK_Q = 64      # query rows per tile, as `kBlockQ` in the kernel
+FLASH_BLOCK_K = 32      # keys per tile, as `kBlockK`
+FLASH_MASK = -1e30      # masked score, as the reference kernel's NEG_INF
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """The `flash_attention` kernel's algorithm in tensor ops.
+
+    q (B, S, H, hd), k and v (B, S, KV, hd) with H a multiple of KV ->
+    (B, S, H, hd) in q's dtype.  Per tile of FLASH_BLOCK_Q query rows it
+    walks the key tiles of FLASH_BLOCK_K keys up to the one that holds
+    the tile's last row (all of them when not `causal`), carrying the
+    running max, normalizer and accumulator in float32; q is scaled by
+    1/sqrt(hd) first, masked scores are -1e30, and the output is
+    acc / max(l, 1e-20).  K and V are expanded to H heads here (query
+    head h reads KV head h // (H // KV)); the kernel indexes instead.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    fold = lambda x: x.float().permute(0, 2, 1, 3)           # (B, H, S, hd)
+    expand = lambda x: x[:, :, :, None].expand(
+        B, S, KV, H // KV, hd).reshape(B, S, H, hd)
+    qf = fold(q) * (1.0 / math.sqrt(hd))
+    kf = fold(expand(k))
+    vf = fold(expand(v))
+    out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, FLASH_BLOCK_Q):
+        qt = qf[:, :, q0:q0 + FLASH_BLOCK_Q]
+        nq = qt.shape[2]
+        qpos = torch.arange(q0, q0 + nq, device=q.device)[:, None]
+        acc = torch.zeros((B, H, nq, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, H, nq), FLASH_MASK, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, nq), dtype=torch.float32, device=q.device)
+        last = min(q0 + FLASH_BLOCK_Q, S) if causal else S
+        for k0 in range(0, last, FLASH_BLOCK_K):
+            kt = kf[:, :, k0:k0 + FLASH_BLOCK_K]
+            vt = vf[:, :, k0:k0 + FLASH_BLOCK_K]
+            s = qt @ kt.transpose(-1, -2)                      # (B,H,nq,bk)
+            if causal:
+                kpos = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+                s = torch.where(kpos[None, :] <= qpos, s, FLASH_MASK)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vt
+            m = m_new
+        out[:, :, q0:q0 + nq] = acc / torch.clamp_min(l, 1e-20)[..., None]
+    return out.permute(0, 2, 1, 3).contiguous().to(q.dtype)

@@ -1,4 +1,5 @@
-"""Model parameters for the port: the paper's CNN."""
-from . import cnn
+"""Model parameters and the LM serving path for the port: the paper's
+CNN, and the dense decoder (config, layers, attention, transformer)."""
+from . import attention, cnn, config, layers, transformer
 
-__all__ = ["cnn"]
+__all__ = ["attention", "cnn", "config", "layers", "transformer"]

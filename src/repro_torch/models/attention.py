@@ -1,0 +1,193 @@
+"""Self-attention (GQA, RoPE, QK-norm, bias, sliding window) with the
+train / prefill / decode KV-cache paths.
+
+The port of the GQA part of `repro.models.attention`.  Causal attention
+without a window — every train and prefill call of a full-attention
+model — runs through the hand-written flash-attention kernel
+(`kernels.ops.flash_attention`), which indexes the KV head of each query
+head instead of expanding K and V.  `_attend`, the plain masked
+softmax in float32, stays for decode (one query against the ring-buffer
+cache, as the reference computes it outside any kernel) and for
+windowed prefill (unchunked: the reference's q-chunked form above 8,192
+tokens computes the same function and is not ported).  MLA and
+cross-attention are not ported yet.
+
+The KV cache is a dict {"k", "v": (B, slots, KV, hd), "pos": int}.
+Unlike the reference's functional update, prefill and decode write
+into the cache's tensors in place (a full-width cache is gigabytes);
+the returned dict shares them, so a cache is used once and then
+replaced by the one returned.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+from .config import ModelConfig
+from .layers import apply_rope, dense_apply, dense_init, norm_apply, norm_init
+
+MASK_VALUE = -1e30
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
+                               f"see ROADMAP.md §1 item 13")
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+def init_self_attention(g: torch.Generator, cfg: ModelConfig,
+                        device="cuda") -> dict:
+    if cfg.mla is not None:
+        raise _not_ported("MLA attention")
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    kw = {"dtype": cfg.dtype, "device": device}
+    p = {
+        "wq": dense_init(g, d, H * hd, bias=cfg.qkv_bias, **kw),
+        "wk": dense_init(g, d, KV * hd, bias=cfg.qkv_bias, **kw),
+        "wv": dense_init(g, d, KV * hd, bias=cfg.qkv_bias, **kw),
+        "wo": dense_init(g, H * hd, d, **kw),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = norm_init(hd, "rmsnorm", **kw)
+        p["knorm"] = norm_init(hd, "rmsnorm", **kw)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# core attention math
+# ---------------------------------------------------------------------------
+
+def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, T, KV, hd) -> (B, T, KV*groups, hd) by repetition (GQA)."""
+    if groups == 1:
+        return k
+    B, T, KV, hd = k.shape
+    return k[:, :, :, None].expand(B, T, KV, groups, hd).reshape(
+        B, T, KV * groups, hd)
+
+
+def _attend(q, k, v, *, causal: bool, window: Optional[int], q_offset,
+            kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k,v: (B,T,H,hd).  Masked softmax attention in
+    float32, cast back to q's dtype.
+
+    q_offset: absolute position of q[0] minus position of k[0] (so
+    query i attends keys j with j <= i + q_offset, and, with a window,
+    j > i + q_offset - window).
+    kv_len: optional valid length of k/v (ring-buffer decode).
+    """
+    Sq, hd = q.shape[1], q.shape[3]
+    T = k.shape[1]
+    scale = 1.0 / np.sqrt(hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kj = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((Sq, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+        if window is not None:
+            mask &= kj > qi - window
+    if kv_len is not None:
+        mask &= kj < kv_len
+    scores = torch.where(mask[None, None], scores, MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# self-attention: train / prefill / decode
+# ---------------------------------------------------------------------------
+
+def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  window: Optional[int], device="cuda") -> dict:
+    """An empty cache.  Windowed caches are ring buffers of `window`
+    slots; full caches hold max_len slots."""
+    if cfg.mla is not None:
+        raise _not_ported("the MLA cache")
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    slots = min(window, max_len) if window else max_len
+    shape = (batch, slots, KV, hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": 0}
+
+
+def apply_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                         window: Optional[int],
+                         cache: Optional[dict] = None,
+                         positions: Optional[torch.Tensor] = None):
+    """Returns (y, new_cache).  cache=None -> train (no cache out).
+    x: (B, S, d).  S>1 with cache -> prefill (fills cache);
+    S==1 with cache -> single-token decode."""
+    if cfg.mla is not None:
+        raise _not_ported("MLA attention")
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    groups = H // KV
+    if positions is None:
+        base = cache["pos"] if cache is not None else 0
+        positions = base + torch.arange(S, device=x.device)[None, :]
+
+    q = dense_apply(p["wq"], x).reshape(B, S, H, hd)
+    k = dense_apply(p["wk"], x).reshape(B, S, KV, hd)
+    v = dense_apply(p["wv"], x).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = norm_apply(p["qnorm"], q)
+        k = norm_apply(p["knorm"], k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None or S > 1:
+        if window is None:
+            out = ops.flash_attention(q, k, v, causal=True)
+        else:
+            out = _attend(q, _expand_kv(k, groups), _expand_kv(v, groups),
+                          causal=True, window=window, q_offset=0)
+        new_cache = None
+        if cache is not None:       # prefill: persist the (ring) tail
+            new_cache = _fill_cache(cache, k, v, S)
+    else:
+        new_cache = _append_cache(cache, k, v)
+        kv_len = min(new_cache["pos"], new_cache["k"].shape[1])
+        kf = _expand_kv(new_cache["k"], groups)
+        vf = _expand_kv(new_cache["v"], groups)
+        # ring buffer: softmax is permutation-invariant given the
+        # validity mask; window recency is enforced by the buffer size
+        out = _attend(q, kf, vf, causal=False, window=None, q_offset=0,
+                      kv_len=kv_len)
+    y = dense_apply(p["wo"], out.reshape(B, S, H * hd))
+    return y, new_cache
+
+
+def _fill_cache(cache: dict, k, v, S: int) -> dict:
+    """Prefill: write the last `slots` keys/values into the ring buffer
+    (in place), aligned so absolute position p occupies slot p % slots
+    (decode then continues the ring seamlessly).  pos records the
+    absolute count."""
+    slots = cache["k"].shape[1]
+    take = min(S, slots)
+    kt = k[:, S - take:]
+    vt = v[:, S - take:]
+    if take == slots and S % slots:
+        kt = torch.roll(kt, S % slots, dims=1)
+        vt = torch.roll(vt, S % slots, dims=1)
+    cache["k"][:, :take].copy_(kt)
+    cache["v"][:, :take].copy_(vt)
+    return {"k": cache["k"], "v": cache["v"], "pos": S}
+
+
+def _append_cache(cache: dict, k, v) -> dict:
+    """Decode: write one token at pos % slots (ring), in place."""
+    idx = cache["pos"] % cache["k"].shape[1]
+    cache["k"][:, idx:idx + 1].copy_(k)
+    cache["v"][:, idx:idx + 1].copy_(v)
+    return {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + 1}

@@ -1,0 +1,218 @@
+"""Model assembly: the decoder stack, prefill / decode caches, the LM.
+
+The port of `repro.models.transformer` for the ``"dense"`` block (GQA
+self-attention + dense MLP), which is every layer of Qwen3-4B.  Other
+block kinds, encoders and frontends are not ported yet and raise.
+
+The reference stacks the repeated groups' parameters and runs them with
+`lax.scan`; the port keeps one parameter dict per layer in
+``params["decoder"]`` (a list in layer order: prefix, the groups
+unrolled, suffix) and runs them in a Python loop.  Decode caches are a
+list of per-layer caches in the same order.
+`lm_params_from_jax` carries a reference `init_lm` tree across.
+
+Modes:
+  train    — full sequence, no cache (`forward_hidden`)
+  prefill  — full sequence, fills decode caches, returns last logits
+  decode   — one token through the ring-buffer caches
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.packets import params_from_jax, tree_map
+
+from . import attention as attn
+from .config import ModelConfig
+from .layers import (dense_apply, dense_init, embed_apply, embed_init,
+                     mlp_apply, mlp_init, norm_apply, norm_init)
+
+PORTED_KINDS = ("dense",)
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported to repro_torch yet "
+            f"(ported: {PORTED_KINDS}); see ROADMAP.md §1 item 13")
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """The block kind of every decoder layer, in order: prefix, the
+    repeated groups unrolled, suffix."""
+    prefix, pattern, suffix = cfg.decoder_layer_kinds()
+    return list(prefix) + list(pattern) * cfg.n_scan_groups() + list(suffix)
+
+
+# ---------------------------------------------------------------------------
+# block
+# ---------------------------------------------------------------------------
+
+def init_block(g: torch.Generator, kind: str, cfg: ModelConfig,
+               device="cuda") -> dict:
+    _check_kind(kind)
+    d = cfg.d_model
+    kw = {"dtype": cfg.dtype, "device": device}
+    return {
+        "ln1": norm_init(d, cfg.norm, **kw),
+        "attn": attn.init_self_attention(g, cfg, device),
+        "ln2": norm_init(d, cfg.norm, **kw),
+        "mlp": mlp_init(g, d, cfg.d_ff, cfg.act, **kw),
+    }
+
+
+def make_block_cache(kind: str, cfg: ModelConfig, batch: int,
+                     cache_len: int, window: Optional[int], device="cuda"):
+    """Empty decode cache for one block."""
+    _check_kind(kind)
+    return attn.make_kv_cache(cfg, batch, cache_len, window, device)
+
+
+def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                cache=None, window: Optional[int] = None):
+    """Returns (x, new_cache)."""
+    _check_kind(kind)
+    win = window or cfg.window   # explicit override > config window
+    h, new_c = attn.apply_self_attention(
+        p["attn"], norm_apply(p["ln1"], x, cfg.norm), cfg, window=win,
+        cache=cache)
+    x = x + h
+    y = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.act)
+    return x + y, new_c
+
+
+# ---------------------------------------------------------------------------
+# stack
+# ---------------------------------------------------------------------------
+
+def init_decoder_stack(g: torch.Generator, cfg: ModelConfig,
+                       device="cuda") -> list[dict]:
+    return [init_block(g, kind, cfg, device) for kind in layer_kinds(cfg)]
+
+
+def make_decoder_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                       window: Optional[int], device="cuda") -> list:
+    return [make_block_cache(kind, cfg, batch, cache_len, window, device)
+            for kind in layer_kinds(cfg)]
+
+
+def apply_decoder_stack(layers: list[dict], x: torch.Tensor,
+                        cfg: ModelConfig, *, cache: Optional[list] = None,
+                        window: Optional[int] = None):
+    """Returns (x, new_cache); new_cache is None without a cache."""
+    new_cache = [] if cache is not None else None
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), layers,
+                                      strict=True)):
+        c = cache[i] if cache is not None else None
+        x, nc = apply_block(kind, p, x, cfg, cache=c, window=window)
+        if cache is not None:
+            new_cache.append(nc)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# full language model
+# ---------------------------------------------------------------------------
+
+def _check_lm(cfg: ModelConfig) -> None:
+    if cfg.encoder_layers > 0 or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: encoders and frontends are not ported to "
+            f"repro_torch yet; see ROADMAP.md §1 item 13")
+    for kind in layer_kinds(cfg):
+        _check_kind(kind)
+
+
+def init_lm(g: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
+    """Random LM parameters with the reference's scales (dense
+    1/sqrt(d_in), embedding 0.02, norm scales one), drawn from `g`,
+    which must live on `device`."""
+    _check_lm(cfg)
+    kw = {"dtype": cfg.dtype, "device": device}
+    p = {
+        "embed": embed_init(g, cfg.padded_vocab, cfg.d_model, **kw),
+        "decoder": init_decoder_stack(g, cfg, device),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(g, cfg.d_model, cfg.padded_vocab, **kw)
+    return p
+
+
+def lm_params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The reference's `init_lm` tree, given as numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, params)``, bf16 leaves as they
+    come or as ``view(np.uint16)``), as the port's parameters.
+
+    The leading group axis of ``decoder.scan`` is unstacked into one dict
+    per layer; float leaves are cast to ``cfg.dtype`` (bf16 bits stay
+    exact: a uint16 view is reinterpreted, not converted)."""
+    _check_lm(cfg)
+
+    def index(x, gi):
+        if isinstance(x, dict):
+            return {k: index(v, gi) for k, v in x.items()}
+        return x[gi]
+
+    dec = tree["decoder"]
+    prefix, pattern, suffix = cfg.decoder_layer_kinds()
+    if len(dec["prefix"]) != len(prefix) or len(dec["suffix"]) != len(suffix):
+        raise ValueError("the tree's prefix/suffix do not match the config")
+    layers = list(dec["prefix"])
+    for gi in range(cfg.n_scan_groups()):
+        layers += [index(dec["scan"][f"b{j}"], gi)
+                   for j in range(len(pattern))]
+    layers += list(dec["suffix"])
+    out = {"embed": tree["embed"], "decoder": layers,
+           "final_norm": tree["final_norm"]}
+    if "lm_head" in tree:
+        out["lm_head"] = tree["lm_head"]
+    return tree_map(lambda t: t.to(cfg.dtype) if t.is_floating_point() else t,
+                    params_from_jax(out, device, bf16_bits=True))
+
+
+def _lm_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["table"].T
+    return dense_apply(params["lm_head"], h)
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   window=None):
+    """tokens (B, S) -> (final-normed hidden states (B, S, d), aux loss);
+    the aux loss is 0 for dense blocks."""
+    x = embed_apply(params["embed"], tokens)
+    x, _ = apply_decoder_stack(params["decoder"], x, cfg, window=window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return norm_apply(params["final_norm"], x, cfg.norm), aux
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            cache_len: int, window: Optional[int] = None):
+    """Run the prompt, fill caches, return (last_logits (B,1,V), cache)."""
+    B = tokens.shape[0]
+    device = params["embed"]["table"].device
+    cache = make_decoder_cache(cfg, B, cache_len, window, device)
+    x = embed_apply(params["embed"], tokens)
+    x, cache = apply_decoder_stack(params["decoder"], x, cfg, cache=cache,
+                                   window=window)
+    h = norm_apply(params["final_norm"], x[:, -1:], cfg.norm)
+    return _lm_logits(params, h, cfg), cache
+
+
+def decode_step(params: dict, token: torch.Tensor, cache: list,
+                cfg: ModelConfig, *, window: Optional[int] = None):
+    """One-token decode: token (B, 1) int -> (logits (B,1,V), cache).
+    The cache's tensors are updated in place."""
+    x = embed_apply(params["embed"], token)
+    x, cache = apply_decoder_stack(params["decoder"], x, cfg, cache=cache,
+                                   window=window)
+    h = norm_apply(params["final_norm"], x, cfg.norm)
+    return _lm_logits(params, h, cfg), cache

@@ -1,0 +1,217 @@
+"""The port's attention against the JAX package, on the CPU.
+
+Covered: the flash kernel's plain version (`flash_attention_ref`, and
+`ops.flash_attention`, whose wrapper runs it for CPU tensors) against
+the reference's `_attend(causal=True, window=None, q_offset=0)` — the
+oracle `tests/test_kernels.py` holds the Pallas kernel to, which cannot
+itself run under this JAX — at that file's shapes, S = 1, ragged S, GQA
+groups 1 and 4, and head_dim 32, 64 and 128; the wrapper's contract
+(non-causal ragged S raises like the reference, unsupported head_dim
+raises); the port's `_attend` with a window and `kv_len`; and
+`apply_self_attention` in train, prefill and decode mode on a float32
+override of the reduced Qwen3-4B, with the reference's weights.
+
+Tolerances as `tests/test_kernels.py`: float32 rtol = atol = 2e-4
+(summation order), bf16 rtol = atol = 5e-2 (one bf16 rounding of the
+output, and of the inputs on the reference's side).
+"""
+import copy
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs as tconfigs
+from repro_torch.core import packets as tpackets
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+
+F32_TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX reference, imported here and not at module level."""
+    jax = pytest.importorskip("jax")
+    from repro import configs as jconfigs
+    from repro.kernels import flash_attention as jfa
+    from repro.models import attention as jattn
+    return SimpleNamespace(jax=jax, jnp=jax.numpy, attn=jattn, fa=jfa,
+                           configs=jconfigs)
+
+
+def _qkv(seed, B, S, H, KV, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def _oracle(J, q, k, v, *, causal=True, dtype=None):
+    """The reference's `_attend` on expanded K/V (as its callers do)."""
+    groups = q.shape[2] // k.shape[2]
+    cast = (lambda x: J.jnp.asarray(x, dtype)) if dtype else J.jnp.asarray
+    return np.asarray(J.attn._attend(
+        cast(q), J.attn._expand_kv(cast(k), groups),
+        J.attn._expand_kv(cast(v), groups), causal=causal, window=None,
+        q_offset=0), np.float32)
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("S,H,hd", [(128, 2, 16), (192, 1, 32), (100, 2, 16)])
+def test_plain_matches_oracle_at_the_kernel_tests_shapes(J, S, H, hd):
+    """`tests/test_kernels.py`'s shapes (B = 2; head_dim 16 is below the
+    CUDA kernel's instances, so only the plain version runs it)."""
+    q, k, v = _qkv(S + H, 2, S, H, H, hd)
+    got = tref.flash_attention_ref(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), _oracle(J, q, k, v), **F32_TOL)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("S", [1, 100])
+def test_wrapper_matches_oracle(J, S, H, KV, hd):
+    q, k, v = _qkv(S * hd + H, 2, S, H, KV, hd)
+    want = _oracle(J, q, k, v)
+    before = tfa.flash_attention.launches
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=True)
+    assert tfa.flash_attention.launches == before      # CPU: plain version
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    np.testing.assert_allclose(
+        tref.flash_attention_ref(_t(q), _t(k), _t(v)).numpy(), want,
+        **F32_TOL)
+
+
+@pytest.mark.parametrize("S,H,KV,hd", [(128, 2, 2, 32), (100, 8, 2, 64),
+                                       (1, 4, 1, 128)])
+def test_wrapper_matches_oracle_in_bf16(J, S, H, KV, hd):
+    q, k, v = _qkv(7 + S, 1, S, H, KV, hd)
+    want = _oracle(J, q, k, v, dtype=J.jnp.bfloat16)
+    bf = torch.bfloat16
+    got = tops.flash_attention(_t(q, bf), _t(k, bf), _t(v, bf))
+    assert got.dtype == bf
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+def test_non_causal_matches_oracle_and_ragged_raises_like_reference(J):
+    q, k, v = _qkv(3, 1, 256, 4, 2, 32)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=False)
+    np.testing.assert_allclose(got.numpy(), _oracle(J, q, k, v, causal=False),
+                               **F32_TOL)
+    q, k, v = _qkv(4, 1, 100, 2, 2, 32)
+    with pytest.raises(ValueError, match="non-causal") as ours:
+        tops.flash_attention(_t(q), _t(k), _t(v), causal=False)
+    with pytest.raises(ValueError, match="non-causal") as theirs:
+        J.fa.flash_attention(J.jnp.asarray(q), J.jnp.asarray(k),
+                             J.jnp.asarray(v), causal=False)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (_t(x) for x in _qkv(5, 1, 8, 4, 2, 48))
+    with pytest.raises(ValueError, match="head_dim 48"):
+        tops.flash_attention(q, k, v)
+    q, k, v = (_t(x) for x in _qkv(5, 1, 8, 6, 4, 32))
+    with pytest.raises(ValueError, match="multiple of 4 KV"):
+        tops.flash_attention(q, k, v)
+    q, k, v = (_t(x) for x in _qkv(5, 1, 8, 4, 2, 32))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="k and v"):
+        tops.flash_attention(q, k[:, :4], v[:, :4])
+
+
+def test_plain_version_takes_strided_views(J):
+    """q, k, v as head slices of one fused projection (not contiguous)."""
+    rng = np.random.default_rng(9)
+    qkv = rng.standard_normal((2, 70, 8 + 2 * 2, 32)).astype(np.float32)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    t = torch.from_numpy(qkv)
+    got = tops.flash_attention(t[:, :, :8], t[:, :, 8:10], t[:, :, 10:])
+    np.testing.assert_allclose(got.numpy(), _oracle(J, q, k, v), **F32_TOL)
+
+
+@pytest.mark.parametrize("causal,window,q_offset,kv_len", [
+    (True, None, 0, None), (True, 5, 0, None), (True, 4, 3, None),
+    (False, None, 0, 9), (True, None, 2, 11)])
+def test_attend_matches_reference(J, causal, window, q_offset, kv_len):
+    rng = np.random.default_rng(10)
+    q = rng.standard_normal((2, 6, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 13, 4, 32)).astype(np.float32)
+    v = rng.standard_normal((2, 13, 4, 32)).astype(np.float32)
+    want = J.attn._attend(J.jnp.asarray(q), J.jnp.asarray(k),
+                          J.jnp.asarray(v), causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len)
+    got = tattn._attend(_t(q), _t(k), _t(v), causal=causal, window=window,
+                        q_offset=q_offset, kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.fixture(scope="module")
+def layer(J):
+    """One self-attention layer of the reduced Qwen3-4B (float32) in both
+    packages, with the reference's weights."""
+    jcfg = J.configs.reduced_config("qwen3_4b").with_overrides(
+        dtype=J.jnp.float32)
+    tcfg = tconfigs.reduced_config("qwen3_4b").with_overrides(
+        dtype=torch.float32)
+    jp = J.attn.init_self_attention(J.jax.random.PRNGKey(11), jcfg)
+    tp = tpackets.params_from_jax(J.jax.tree_util.tree_map(np.asarray, jp),
+                                  device="cpu")
+    return SimpleNamespace(jcfg=jcfg, tcfg=tcfg, jp=jp, tp=tp)
+
+
+def _x(seed, B, S):
+    return np.random.default_rng(seed).standard_normal((B, S, 256)).astype(
+        np.float32)
+
+
+def test_apply_self_attention_train_matches_reference(J, layer):
+    x = _x(12, 2, 45)
+    want, _ = J.attn.apply_self_attention(layer.jp, J.jnp.asarray(x),
+                                          layer.jcfg, window=None)
+    got, cache = tattn.apply_self_attention(layer.tp, _t(x), layer.tcfg,
+                                            window=None)
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("S,slots,window", [
+    (20, 20, None),    # prefill fills the cache exactly
+    (13, 17, None),    # room left for decode
+    (13, 8, 8),        # a windowed ring that wraps: rolled on fill
+])
+def test_apply_self_attention_prefill_then_decode_matches_reference(
+        J, layer, S, slots, window):
+    B = 2
+    x = _x(13 + S, B, S)
+    jc = J.attn.make_kv_cache(layer.jcfg, B, slots, window)
+    tc = tattn.make_kv_cache(layer.tcfg, B, slots, window, device="cpu")
+    want, jc = J.attn.apply_self_attention(layer.jp, J.jnp.asarray(x),
+                                           layer.jcfg, window=window,
+                                           cache=jc)
+    got, tc = tattn.apply_self_attention(layer.tp, _t(x), layer.tcfg,
+                                         window=window, cache=tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    assert tc["pos"] == int(jc["pos"]) == S
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   **F32_TOL)
+    for step in range(3):                 # decode, wrapping the ring
+        x1 = _x(100 + step, B, 1)
+        want, jc = J.attn.apply_self_attention(
+            layer.jp, J.jnp.asarray(x1), layer.jcfg, window=window, cache=jc)
+        got, tc = tattn.apply_self_attention(
+            layer.tp, _t(x1), layer.tcfg, window=window,
+            cache=copy.copy(tc))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+        assert tc["pos"] == int(jc["pos"]) == S + step + 1
+        np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]),
+                                   **F32_TOL)

@@ -43,7 +43,7 @@ def clients():
 
 
 def _port(trees):
-    return [tpackets.params_from_jax(t) for t in trees]
+    return [tpackets.params_from_jax(t, device="cpu") for t in trees]
 
 
 def test_init_cnn_matches_reference_layout():

@@ -4,7 +4,9 @@ the CUDA kernels against their plain versions on the card.
 Covered: the lane-packed ladder and its seeded variant
 (`gf_matmul_packed*`), the unpacked carry-less multiply
 (`gf_matmul_unpacked`, plain version `gf_matmul_clmul_ref`) and the
-GF(2) masked XOR (`gf2_matmul`, plain version `gf2_matmul_ref`).
+GF(2) masked XOR (`gf2_matmul`, plain version `gf2_matmul_ref`).  The
+flash-attention kernel's plain version is held against the reference
+in `tests/test_torch_attention.py`; its card test is here.
 
 On this CPU the JAX kernels run as their own tests run them
 (``interpret=True``), and the port's wrappers take their plain PyTorch
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch.core import seeds as tseeds
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gf2_xor as tgx
 from repro_torch.kernels import gf_matmul as tgm
 from repro_torch.kernels import ops as tops
@@ -418,3 +421,34 @@ def test_cuda_unpacked_kernels_match_plain_versions(cuda_device, s):
         assert torch.equal(got2, tref.gf2_matmul_ref(A, P))
         assert not wide_out[:, :off].any() and \
             not wide_out[:, off + L:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, {"rtol": 2e-4, "atol": 2e-4}),
+    (torch.bfloat16, {"rtol": 1e-2, "atol": 1e-3})], ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, dtype, tol):
+    """The flash kernel == `flash_attention_ref` on the card: head_dim
+    32, 64, 128; GQA groups 1 and 4; S = 1, ragged 100 and 2049;
+    non-causal at S = 256; q, k, v as strided head slices of one fused
+    tensor; and in bf16 the serving shape (4, 2048, 32, 8, 128).  Both
+    accumulate in float32 over the same tiles, so in bf16 they differ by
+    the output's rounding (one bf16 step, 2^-7 relative, at most)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    cases = [(2, S, H, KV, hd, True) for hd in (32, 64, 128)
+             for H, KV in ((4, 4), (8, 2)) for S in (1, 100, 2049)]
+    cases += [(1, 256, 8, 2, 128, False)]
+    if dtype == torch.bfloat16:
+        cases += [(4, 2048, 32, 8, 128, True)]
+    for B, S, H, KV, hd, causal in cases:
+        fused = torch.randn((B, S, H + 2 * KV, hd), generator=g,
+                            device=cuda_device).to(dtype)
+        q, k, v = fused[:, :, :H], fused[:, :, H:H + KV], fused[:, :, H + KV:]
+        before = tfa.flash_attention.launches
+        got = tfa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.launches == before + 1
+        want = tref.flash_attention_ref(q, k, v, causal=causal)
+        assert got.dtype == dtype and got.shape == (B, S, H, hd)
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=f"{(B, S, H, KV, hd)}")
