@@ -45,7 +45,11 @@ failing on the first wrong result:
 
 Phase 1 also holds the flash-attention kernel against its plain version
 in float32 and bf16: head_dim 32, 64, 128, GQA groups 1 and 4, S = 1,
-ragged S (100, 2049), non-causal, strided views and phase 7's shape.
+ragged S (100, 2049), the bf16 kernel's 128-key tile edges (129, 256,
+300), non-causal, strided views, views TMA cannot read in place (each
+still one launch) and phase 7's shape.  After the build it prints
+ptxas' registers and spills and the SASS count of tensor-core
+instructions (HGMMA, HMMA) in the flash library.
 
 Each of phases 2-7 drives the main path with every launch count set to
 0 just before it and read just after, and fails if a kernel of that
@@ -129,10 +133,11 @@ DECODE_TOL = {"rtol": 1e-3, "atol": 1e-3}
 # 80GB HBM3 at 700 W; a wrong slot, position or mask moves logits by more
 DECODE_TOL_BF16 = 0.25
 # flash kernel vs its plain version on the card: both accumulate in
-# float32 from the same inputs over the same tiles, so in bf16 they differ
-# by the output's rounding, at most one bf16 step (2^-7 relative) above
-# float32 noise; the CPU tests hold the plain version to the reference's
-# `_attend` at 5e-2 in bf16, a different computation
+# float32 from the same inputs over the same tiles, and in bf16 both round
+# P to bf16 after the same tensor-core sums of q·kᵀ, so in bf16 they
+# differ by the output's rounding, at most one bf16 step (2^-7 relative)
+# above float32 noise; the CPU tests hold the plain version to the
+# reference's `_attend` at 5e-2 in bf16, a different computation
 FLASH_TOL = {torch.float32: {"rtol": 2e-4, "atol": 2e-4},
              torch.bfloat16: {"rtol": 1e-2, "atol": 1e-3}}
 KERNEL_SOURCES = ("gf_matmul", "gf2_xor", "flash_attention")  # csrc/<name>.cu
@@ -154,6 +159,24 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_mma(lib: pathlib.Path) -> None:
+    """Print the count of tensor-core instructions (HGMMA: wgmma; HMMA:
+    mma.sync) in a built library's SASS, from the toolkit's cuobjdump
+    where it has one."""
+    from repro_torch.kernels import build
+
+    tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        print(f"sass: no cuobjdump beside {build.nvcc()}: not counted")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout.splitlines()
+    counts = {op: sum(f" {op}." in line or f" {op} " in line
+                      for line in sass) for op in ("HGMMA", "HMMA")}
+    print(f"sass: {lib.name}: " + ", ".join(f"{n} {op} instructions"
+                                            for op, n in counts.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -261,25 +284,35 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
     `_attend`); returns the max |error| in float32 units."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    cases = [(2, S, H, KV, hd, True) for hd in (32, 64, 128)
+    # (B, S, H, KV, hd, causal, pad): pad > 0 widens the fused tensor's
+    # head to hd + pad, a head stride TMA cannot read in place
+    cases = [(2, S, H, KV, hd, True, 0) for hd in (32, 64, 128)
              for H, KV in ((4, 4), (8, 2)) for S in (1, 100, 2049)]
-    cases += [(1, 256, 8, 2, 128, False)]
+    cases += [(1, 256, 8, 2, 128, False, 0)]
+    cases += [(2, S, 8, 2, hd, True, 0) for hd in (32, 64, 128)
+              for S in (129, 256, 300)]
+    cases += [(2, 300, 8, 2, hd, True, 2) for hd in (32, 128)]
     worst, used = {}, {}       # max |err|, max |err| / (atol + rtol |want|)
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[dtype]
-        shapes = cases + ([(QWEN_BATCH, QWEN_PROMPT, 32, 8, 128, True)]
+        shapes = cases + ([(QWEN_BATCH, QWEN_PROMPT, 32, 8, 128, True, 0)]
                           if dtype == torch.bfloat16 else [])
         worst[dtype] = used[dtype] = 0.0
-        for B, S, H, KV, hd, causal in shapes:
+        for B, S, H, KV, hd, causal, pad in shapes:
             # q, k, v as head slices of one fused tensor: strided views
-            fused = torch.randn((B, S, H + 2 * KV, hd), generator=g,
-                                device=dev).to(dtype)
+            fused = torch.randn((B, S, H + 2 * KV, hd + pad), generator=g,
+                                device=dev).to(dtype)[..., :hd]
             q, k, v = (fused[:, :, :H], fused[:, :, H:H + KV],
                        fused[:, :, H + KV:])
+            check(fa.tma_ready(q) == (pad == 0),
+                  f"flash_attention: tma_ready wrong at pad {pad}")
+            before = fa.flash_attention.launches
             got = fa.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
             what = (f"{str(dtype)[6:]} (B,S,H,KV,hd)={(B, S, H, KV, hd)} "
-                    f"causal={causal}")
+                    f"causal={causal} pad={pad}")
+            check(fa.flash_attention.launches == before + 1,
+                  f"flash_attention {what}: not one launch")
             check(got.shape == (B, S, H, hd) and got.dtype == dtype,
                   f"flash_attention {what}: {got.dtype} {tuple(got.shape)}")
             want = ref.flash_attention_ref(q, k, v, causal=causal).float()
@@ -300,7 +333,8 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
                       f"flash_attention {what} differs from _attend")
     print(f"phase 1: flash_attention == plain version, {len(cases)} shapes "
           f"in each dtype + the phase-7 shape in bf16 (hd 32/64/128, groups "
-          f"1 and 4, S 1/100/2049, non-causal S=256, strided views): "
+          f"1 and 4, S 1/100/129/256/300/2049, non-causal S=256, strided "
+          f"views, views TMA cannot read in place): "
           + "; ".join(f"{str(dt)[6:]} tolerance {FLASH_TOL[dt]}, max_abs_err="
                       f"{worst[dt]}, largest share of the tolerance used "
                       f"{used[dt]:.4f}" for dt in worst))
@@ -1007,6 +1041,7 @@ def main() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas: {line.strip()}")
+    sass_mma(libs[KERNEL_SOURCES.index("flash_attention")])
 
     wrappers = gk.WRAPPERS + gx.WRAPPERS + fa.WRAPPERS
     errors = phase1(gk, gx, ref, seeds_mod)

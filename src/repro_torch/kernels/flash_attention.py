@@ -1,20 +1,26 @@
-"""Causal flash attention: CUDA kernel and wrapper.
+"""Causal flash attention: CUDA kernels and wrapper.
 
 The attention of every prefill and forward call of the LM serving path.
-One hand-written Hopper kernel lives in `csrc/flash_attention.cu`:
+Two hand-written Hopper kernels live in `csrc/flash_attention.cu`, one
+per dtype, behind one wrapper:
 
 * `flash_attention(q, k, v, causal=)` — replaces the TPU kernel
   `repro.kernels.flash_attention.flash_attention_folded` (and its
   wrapper `flash_attention`): online-softmax attention with scale
   1/sqrt(hd), float32 scores and accumulator, key tiles above the
-  diagonal skipped.
+  diagonal skipped.  bf16 runs on the tensor cores (wgmma, K and V
+  through a TMA ring, P rounded to bf16 before P·V); float32 on the
+  CUDA cores in full float32.
 
 It takes q (B, S, H, hd) and k, v (B, S, KV, hd) as the model makes them
-(no fold, no transpose: the kernel reads strides) and indexes KV head
+(no fold, no transpose: the kernels read strides) and indexes KV head
 h // (H // KV) instead of expanding K and V.  The ragged last tile is
-masked in the kernel, so S is not padded.  As in the reference, the
-non-causal case needs S to be a multiple of the reference's block (128)
-and raises ValueError otherwise.
+masked in the kernel, so S is not padded.  TMA reads a bf16 operand in
+place only from a 16-byte-aligned base with strides of multiples of 16
+bytes; an operand that is not is copied to a contiguous one first (the
+same kernel then reads the copy).  As in the reference, the non-causal
+case needs S to be a multiple of the reference's block (128) and raises
+ValueError otherwise.
 
 The wrapper decides by the tensor's device alone: a CPU tensor runs the
 plain version `ref.flash_attention_ref`, a CUDA tensor launches the
@@ -86,13 +92,30 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(zero-padded keys would receive attention)")
 
 
+def _strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """x's batch, sequence and head strides in elements, where a
+    dimension of size 1 (never stepped) takes a contiguous tensor's."""
+    _, S, N, hd = x.shape
+    natural = (S * N * hd, N * hd, hd)
+    return tuple(st if n > 1 else nat for st, n, nat
+                 in zip(x.stride()[:3], x.shape[:3], natural))
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """Whether TMA can read x in place: unit hd stride, a 16-byte-aligned
+    base, and positive strides that are multiples of 16 bytes."""
+    size = x.element_size()
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(st > 0 and st * size % 16 == 0 for st in _strides(x)))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """softmax(q·kᵀ/sqrt(hd))·v per head: q (B, S, H, hd), k and v
     (B, S, KV, hd) with H a multiple of KV -> (B, S, H, hd) in q's dtype.
 
-    CUDA tensors launch the hand-written kernel; CPU tensors run
-    `ref.flash_attention_ref`.
+    CUDA tensors launch the hand-written kernel of their dtype; CPU
+    tensors run `ref.flash_attention_ref`.
     """
     check_operands(q, k, v, causal)
     if q.device.type == "cpu":
@@ -101,14 +124,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (x if tma_ready(x)
+                   else x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+    else:
+        q, k, v = (x if x.stride(3) == 1 else x.contiguous()
+                   for x in (q, k, v))
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], B, S, H, k.shape[2], hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], int(causal), 1.0 / math.sqrt(hd),
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        int(causal), 1.0 / math.sqrt(hd),
         q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "

@@ -146,9 +146,29 @@ def gf_matmul_packed_seeded_ref(seeds: torch.Tensor, P: torch.Tensor,
 # flash attention
 # ---------------------------------------------------------------------------
 
-FLASH_BLOCK_Q = 64      # query rows per tile, as `kBlockQ` in the kernel
-FLASH_BLOCK_K = 32      # keys per tile, as `kBlockK`
+#: (query rows, keys) per tile of the flash kernel, by input dtype, as
+#: in csrc/flash_attention.cu: the float32 CUDA-core kernel's kBlockQ x
+#: kBlockK and the bf16 tensor-core kernel's hopper::kBlockQ x kBlockK
+FLASH_TILES = {torch.float32: (64, 32), torch.bfloat16: (128, 128)}
 FLASH_MASK = -1e30      # masked score, as the reference kernel's NEG_INF
+LOG2E = 1.4426950408889634
+
+
+def _tensor_core_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16-valued float32 tiles (..., m, k) x (..., k, n) with
+    float32 sums.  On the card through torch's bf16 GEMM with float32
+    output: bf16 products summed by the tensor cores, as the kernel's
+    wgmma sums them (a float32 GEMM sums in another order, and that last
+    bit decides on which side of a bf16 rounding boundary P falls).  On
+    the CPU, which has no such GEMM, in float32."""
+    if not a.is_cuda:
+        return a @ b
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    out = torch.bmm(a3.to(torch.bfloat16), b3.to(torch.bfloat16),
+                    out_dtype=torch.float32)
+    return out.reshape(*lead, *out.shape[-2:])
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,25 +176,42 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The `flash_attention` kernel's algorithm in tensor ops.
 
     q (B, S, H, hd), k and v (B, S, KV, hd) with H a multiple of KV ->
-    (B, S, H, hd) in q's dtype.  Per tile of FLASH_BLOCK_Q query rows it
-    walks the key tiles of FLASH_BLOCK_K keys up to the one that holds
-    the tile's last row (all of them when not `causal`), carrying the
-    running max, normalizer and accumulator in float32; q is scaled by
-    1/sqrt(hd) first, masked scores are -1e30, and the output is
-    acc / max(l, 1e-20).  K and V are expanded to H heads here (query
-    head h reads KV head h // (H // KV)); the kernel indexes instead.
+    (B, S, H, hd) in q's dtype.  Per tile of query rows it walks the key
+    tiles (FLASH_TILES[q.dtype]) up to the one that holds the tile's
+    last row (all of them when not `causal`), carrying the running max,
+    normalizer and accumulator in float32; masked scores are -1e30.  As
+    each kernel does: in float32 q is scaled by 1/sqrt(hd) first, both
+    products are float32 and the output is acc / max(l, 1e-20).  In bf16
+    (the tensor-core kernel) the softmax is base 2: the running max is
+    of the scores times c = log2(e)/sqrt(hd) (c rounded as the kernel
+    rounds it), P = 2^(s·c − m) with one rounding (the kernel's FMA: s·c
+    is exact in float64), P is rounded to bf16 before P·V (l sums the
+    unrounded P), both products are `_tensor_core_product`, and the
+    output is acc · (1 / max(l, 1e-20)).  K and V are expanded to H
+    heads here (query head h reads KV head h // (H // KV)); the kernels
+    index instead.
     """
     B, S, H, hd = q.shape
     KV = k.shape[2]
+    block_q, block_k = FLASH_TILES[q.dtype]
+    tensor_cores = q.dtype == torch.bfloat16
     fold = lambda x: x.float().permute(0, 2, 1, 3)           # (B, H, S, hd)
     expand = lambda x: x[:, :, :, None].expand(
         B, S, KV, H // KV, hd).reshape(B, S, H, hd)
-    qf = fold(q) * (1.0 / math.sqrt(hd))
+    if tensor_cores:
+        qf = fold(q)
+        # float32(1/sqrt(hd)) x float32(log2 e), rounded to float32
+        c = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+                  * torch.tensor(LOG2E, dtype=torch.float32))
+        product = _tensor_core_product
+    else:
+        qf = fold(q) * (1.0 / math.sqrt(hd))
+        product = torch.matmul
     kf = fold(expand(k))
     vf = fold(expand(v))
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
-    for q0 in range(0, S, FLASH_BLOCK_Q):
-        qt = qf[:, :, q0:q0 + FLASH_BLOCK_Q]
+    for q0 in range(0, S, block_q):
+        qt = qf[:, :, q0:q0 + block_q]
         nq = qt.shape[2]
         qpos = torch.arange(q0, q0 + nq, device=q.device)[:, None]
         acc = torch.zeros((B, H, nq, hd), dtype=torch.float32,
@@ -182,19 +219,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((B, H, nq), FLASH_MASK, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((B, H, nq), dtype=torch.float32, device=q.device)
-        last = min(q0 + FLASH_BLOCK_Q, S) if causal else S
-        for k0 in range(0, last, FLASH_BLOCK_K):
-            kt = kf[:, :, k0:k0 + FLASH_BLOCK_K]
-            vt = vf[:, :, k0:k0 + FLASH_BLOCK_K]
-            s = qt @ kt.transpose(-1, -2)                      # (B,H,nq,bk)
+        last = min(q0 + block_q, S) if causal else S
+        for k0 in range(0, last, block_k):
+            kt = kf[:, :, k0:k0 + block_k]
+            vt = vf[:, :, k0:k0 + block_k]
+            s = product(qt, kt.transpose(-1, -2))              # (B,H,nq,bk)
             if causal:
                 kpos = torch.arange(k0, k0 + kt.shape[2], device=q.device)
                 s = torch.where(kpos[None, :] <= qpos, s, FLASH_MASK)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
+            if tensor_cores:
+                m_new = torch.maximum(m, s.amax(dim=-1) * c)
+                p = torch.exp2((s.double() * c
+                                - m_new.double()[..., None]).float())
+                corr = torch.exp2(m - m_new)
+            else:
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + p @ vt
+            if tensor_cores:
+                p = p.to(torch.bfloat16).float()
+            acc = acc * corr[..., None] + product(p, vt)
             m = m_new
-        out[:, :, q0:q0 + nq] = acc / torch.clamp_min(l, 1e-20)[..., None]
+        l = torch.clamp_min(l, 1e-20)[..., None]
+        out[:, :, q0:q0 + nq] = (acc * torch.reciprocal(l) if tensor_cores
+                                 else acc / l)
     return out.permute(0, 2, 1, 3).contiguous().to(q.dtype)

@@ -7,7 +7,10 @@ oracle `tests/test_kernels.py` holds the Pallas kernel to, which cannot
 itself run under this JAX — at that file's shapes, S = 1, ragged S, GQA
 groups 1 and 4, and head_dim 32, 64 and 128; the wrapper's contract
 (non-causal ragged S raises like the reference, unsupported head_dim
-raises); the port's `_attend` with a window and `kv_len`; and
+raises); the bf16 plain version (128 x 128 tiles, P rounded to bf16)
+at the new tile's ragged and exact edges; the float32 plain version
+still on the 64 x 32 tiles, bit for bit; the wrapper's TMA alignment
+test; the port's `_attend` with a window and `kv_len`; and
 `apply_self_attention` in train, prefill and decode mode on a float32
 override of the reduced Qwen3-4B, with the reference's weights.
 
@@ -16,6 +19,7 @@ Tolerances as `tests/test_kernels.py`: float32 rtol = atol = 2e-4
 output, and of the inputs on the reference's side).
 """
 import copy
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -98,6 +102,93 @@ def test_wrapper_matches_oracle_in_bf16(J, S, H, KV, hd):
     got = tops.flash_attention(_t(q, bf), _t(k, bf), _t(v, bf))
     assert got.dtype == bf
     np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("S", [129, 256, 300])
+def test_bf16_plain_matches_oracle_at_the_tile_edges(J, S):
+    """The bf16 plain version (the tensor-core kernel's 128 x 128 tiles,
+    bf16 P) one key past a tile, at two whole tiles and ragged in the
+    third, causal; and non-causal at the whole tiles."""
+    assert tref.FLASH_TILES[torch.bfloat16] == (128, 128)
+    q, k, v = _qkv(11 + S, 1, S, 8, 2, 64)
+    bf = torch.bfloat16
+    got = tref.flash_attention_ref(_t(q, bf), _t(k, bf), _t(v, bf))
+    assert got.dtype == bf and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               _oracle(J, q, k, v, dtype=J.jnp.bfloat16),
+                               **BF16_TOL)
+    if S % 128 == 0:
+        got = tref.flash_attention_ref(_t(q, bf), _t(k, bf), _t(v, bf),
+                                       causal=False)
+        np.testing.assert_allclose(
+            got.float().numpy(),
+            _oracle(J, q, k, v, causal=False, dtype=J.jnp.bfloat16),
+            **BF16_TOL)
+
+
+def _flash_64x32(q, k, v):
+    """The float32 plain version as it stood before the bf16 kernel had
+    tiles of its own: 64 query rows x 32 keys, q scaled first, exp."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    fold = lambda x: x.float().permute(0, 2, 1, 3)
+    expand = lambda x: x[:, :, :, None].expand(
+        B, S, KV, H // KV, hd).reshape(B, S, H, hd)
+    qf = fold(q) * (1.0 / math.sqrt(hd))
+    kf = fold(expand(k))
+    vf = fold(expand(v))
+    out = torch.empty((B, H, S, hd), dtype=torch.float32)
+    for q0 in range(0, S, 64):
+        qt = qf[:, :, q0:q0 + 64]
+        nq = qt.shape[2]
+        qpos = torch.arange(q0, q0 + nq)[:, None]
+        acc = torch.zeros((B, H, nq, hd), dtype=torch.float32)
+        m = torch.full((B, H, nq), -1e30, dtype=torch.float32)
+        l = torch.zeros((B, H, nq), dtype=torch.float32)
+        for k0 in range(0, min(q0 + 64, S), 32):
+            kt = kf[:, :, k0:k0 + 32]
+            vt = vf[:, :, k0:k0 + 32]
+            s = qt @ kt.transpose(-1, -2)
+            kpos = torch.arange(k0, k0 + kt.shape[2])
+            s = torch.where(kpos[None, :] <= qpos, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vt
+            m = m_new
+        out[:, :, q0:q0 + nq] = acc / torch.clamp_min(l, 1e-20)[..., None]
+    return out.permute(0, 2, 1, 3).contiguous()
+
+
+def test_f32_plain_keeps_the_64x32_tiles_bit_for_bit(monkeypatch):
+    """The float32 plain version (the CUDA-core kernel's algorithm) is
+    the 64 x 32 tiled computation it was, to the bit, on a fixed input
+    that spans several tiles of each kind and a ragged end; on the bf16
+    kernel's 128 x 128 tiles it would not be."""
+    assert tref.FLASH_TILES[torch.float32] == (64, 32)
+    q, k, v = (_t(x) for x in _qkv(21, 2, 150, 4, 2, 32))
+    old = _flash_64x32(q, k, v)
+    assert torch.equal(tref.flash_attention_ref(q, k, v), old)
+    monkeypatch.setitem(tref.FLASH_TILES, torch.float32,
+                        tref.FLASH_TILES[torch.bfloat16])
+    assert not torch.equal(tref.flash_attention_ref(q, k, v), old)
+
+
+def test_tma_alignment_test_of_the_wrapper():
+    """`tma_ready`: contiguous and head-sliced views pass; a padded head
+    dimension (head stride of 136 bytes) or a base 2 bytes off does not;
+    a dimension of size 1 does not count its stride."""
+    bf = torch.bfloat16
+    fused = torch.zeros((2, 9, 12, 64), dtype=bf)
+    assert tfa.tma_ready(fused) and tfa.tma_ready(fused[:, :, 8:10])
+    assert not tfa.tma_ready(torch.zeros((2, 9, 4, 68), dtype=bf)[..., :64])
+    flat = torch.zeros(2 * 9 * 4 * 64 + 1, dtype=bf)
+    assert not tfa.tma_ready(flat[1:].view(2, 9, 4, 64))
+    one = torch.zeros((1, 1, 4, 64), dtype=bf).as_strided(
+        (1, 1, 4, 64), (3, 5, 64, 1))
+    assert tfa.tma_ready(one)
+    assert tfa._strides(one) == (256, 256, 64)
 
 
 def test_non_causal_matches_oracle_and_ragged_raises_like_reference(J):

@@ -429,21 +429,29 @@ def test_cuda_unpacked_kernels_match_plain_versions(cuda_device, s):
     (torch.bfloat16, {"rtol": 1e-2, "atol": 1e-3})], ids=["f32", "bf16"])
 def test_cuda_flash_attention_matches_plain_version(cuda_device, dtype, tol):
     """The flash kernel == `flash_attention_ref` on the card: head_dim
-    32, 64, 128; GQA groups 1 and 4; S = 1, ragged 100 and 2049;
+    32, 64, 128; GQA groups 1 and 4; S = 1, ragged 100 and 2049, and at
+    the bf16 kernel's 128-key tile's edges 129, 256 and 300;
     non-causal at S = 256; q, k, v as strided head slices of one fused
-    tensor; and in bf16 the serving shape (4, 2048, 32, 8, 128).  Both
-    accumulate in float32 over the same tiles, so in bf16 they differ by
+    tensor, and as views whose head stride (hd + 2 elements) TMA cannot
+    read in place, which still launch the kernel once; and in bf16 the
+    serving shape (4, 2048, 32, 8, 128).  Both accumulate in float32
+    over the same tiles, and in bf16 both round P to bf16 before P·V
+    after the same tensor-core sums of q·kᵀ, so in bf16 they differ by
     the output's rounding (one bf16 step, 2^-7 relative, at most)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    cases = [(2, S, H, KV, hd, True) for hd in (32, 64, 128)
+    cases = [(2, S, H, KV, hd, True, 0) for hd in (32, 64, 128)
              for H, KV in ((4, 4), (8, 2)) for S in (1, 100, 2049)]
-    cases += [(1, 256, 8, 2, 128, False)]
+    cases += [(1, 256, 8, 2, 128, False, 0)]
+    cases += [(2, S, 8, 2, hd, True, 0) for hd in (32, 64, 128)
+              for S in (129, 256, 300)]
+    cases += [(2, 300, 8, 2, hd, True, 2) for hd in (32, 128)]
     if dtype == torch.bfloat16:
-        cases += [(4, 2048, 32, 8, 128, True)]
-    for B, S, H, KV, hd, causal in cases:
-        fused = torch.randn((B, S, H + 2 * KV, hd), generator=g,
-                            device=cuda_device).to(dtype)
+        cases += [(4, 2048, 32, 8, 128, True, 0)]
+    for B, S, H, KV, hd, causal, pad in cases:
+        fused = torch.randn((B, S, H + 2 * KV, hd + pad), generator=g,
+                            device=cuda_device).to(dtype)[..., :hd]
         q, k, v = fused[:, :, :H], fused[:, :, H:H + KV], fused[:, :, H + KV:]
+        assert tfa.tma_ready(q) == (pad == 0)
         before = tfa.flash_attention.launches
         got = tfa.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -451,4 +459,4 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, dtype, tol):
         want = tref.flash_attention_ref(q, k, v, causal=causal)
         assert got.dtype == dtype and got.shape == (B, S, H, hd)
         torch.testing.assert_close(got.float(), want.float(), **tol,
-                                   msg=f"{(B, S, H, KV, hd)}")
+                                   msg=f"{(B, S, H, KV, hd, pad)}")
