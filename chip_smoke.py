@@ -8,9 +8,12 @@ with nvcc (sm_90a, one nvcc per source, all started together) and runs,
 failing on the first wrong result:
 
 1. each kernel against its plain PyTorch version on the card, byte for
-   byte: the chunk shapes of phases 2 and 3, ragged L, n != K, n above
-   one row tile, strided and misaligned column views of P and of the
-   output, K = 1, L = 0.  The lane-packed kernels for s in {1, 2, 4, 8};
+   byte: the chunk shapes of phases 2 and 3 (the CNN's at its own 8-byte
+   aligned row stride), ragged L (16-byte aligned views with L mod 16 in
+   {1, 7, 15}), n != K, n over one and two row tiles, strided and
+   misaligned column views of P and of the output, K = 1, K above the
+   mask tile, K = `gf_max_k()`, L = 0.  The lane-packed kernels for s in
+   {1, 2, 4, 8};
    `gf_matmul_unpacked` for s in {1, 2, 3, 4, 8}, also on bytes >= 2^s;
    `gf2_matmul` on A bytes 0..255 and raw P bytes; at small L all of
    them against the table oracle too;
@@ -48,15 +51,20 @@ in float32 and bf16: head_dim 32, 64, 128, GQA groups 1 and 4, S = 1,
 ragged S (100, 2049), the bf16 kernel's 128-key tile edges (129, 256,
 300), non-causal, strided views, views TMA cannot read in place (each
 still one launch) and phase 7's shape.  After the build it prints
-ptxas' registers and spills and the SASS count of tensor-core
-instructions (HGMMA, HMMA) in the flash library.
+ptxas' registers and spills of every kernel instance, the SASS census
+of the GF kernels' s = 8 instances, whole and of their hottest basic
+block, the step of a full tile (LOP3, of them the selects, SHF, IADD3,
+IMAD, ISETP, and shared and global loads by width; the selects per word
+and packet row) and the count of tensor-core instructions (HGMMA,
+HMMA) in the flash library.
 
 Each of phases 2-7 drives the main path with every launch count set to
 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
 one prefill and one serve step with torch.profiler (device busy share, device time per
 kernel), times each GF kernel and its plain version at the chunk shape
-(8 x 262,144) and the flash kernel, its plain version and PyTorch's
+(8 x 262,144; beside the operations bound, the share of the bytes
+bound) and the flash kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
@@ -72,6 +80,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -161,22 +170,63 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_mma(lib: pathlib.Path) -> None:
-    """Print the count of tensor-core instructions (HGMMA: wgmma; HMMA:
-    mma.sync) in a built library's SASS, from the toolkit's cuobjdump
-    where it has one."""
+def ptxas_report(libs) -> None:
+    """Print ptxas' registers and spill bytes of every kernel instance
+    of the built libraries (their ``-Xptxas -v`` logs)."""
     from repro_torch.kernels import build
 
-    tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
-    if not tool.is_file():
+    for lib in libs:
+        log = lib.with_name(lib.name + ".log")
+        if not log.exists():
+            continue
+        kernels = build.ptxas_kernels(log.read_text())
+        for label, info in sorted(kernels.items()):
+            print(f"ptxas: {lib.name}: {label}: {info['registers']} "
+                  f"registers, {info['spill_stores']} bytes spill stores, "
+                  f"{info['spill_loads']} bytes spill loads")
+        spills = sum(i["spill_stores"] + i["spill_loads"]
+                     for i in kernels.values())
+        print(f"ptxas: {lib.name}: {len(kernels)} kernels, at most "
+              f"{max((i['registers'] for i in kernels.values()), default=0)}"
+              f" registers, {spills} bytes of spills in all")
+
+
+# what the SASS census prints of each GF kernel's s = 8 instance
+SASS_OPS = ("LOP3", "LOP3.select", "SHF", "IADD3", "IMAD", "ISETP",
+            "LDS.128", "LDS.32", "LDG.128", "LDG.64", "LDG.32", "LDG.U8",
+            "STG.128", "STG.64", "STG.32", "STG.U8")
+
+
+def sass_report(gf_lib: pathlib.Path, flash_lib: pathlib.Path) -> None:
+    """Print the static SASS census of the GF kernels' s = 8 instances,
+    whole and of their hottest basic block (the step of a full tile,
+    one packet row: selects per word = LOP3.select / words per thread,
+    the third template argument of the packed kernels, the second of
+    the unpacked), and the count of tensor-core instructions (HGMMA:
+    wgmma; HMMA: mma.sync) in the flash library, from the toolkit's
+    cuobjdump where it has one."""
+    from repro_torch.kernels import build
+
+    gf = build.sass_census(gf_lib)
+    if not gf:
         print(f"sass: no cuobjdump beside {build.nvcc()}: not counted")
         return
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout.splitlines()
-    counts = {op: sum(f" {op}." in line or f" {op} " in line
-                      for line in sass) for op in ("HGMMA", "HMMA")}
-    print(f"sass: {lib.name}: " + ", ".join(f"{n} {op} instructions"
-                                            for op, n in counts.items()))
+    for label, (whole, step) in sorted(gf.items()):
+        if "<8" not in label:
+            continue
+        args = label.split(", ")
+        words = int(args[2 if label.startswith("gf_matmul_packed") else 1])
+        print(f"sass: {label}: kernel " + ", ".join(
+            f"{whole[op]} {op}" for op in SASS_OPS))
+        print(f"sass: {label}: step {step['instructions']} "
+              f"instructions, " + ", ".join(
+                  f"{step[op]} {op}" for op in SASS_OPS)
+              + f"; {step['LOP3.select'] / words:g} selects per word and "
+              f"packet row")
+    mma = sum((whole for whole, _ in build.sass_census(flash_lib).values()),
+              start=Counter())
+    print(f"sass: {flash_lib.name}: " + ", ".join(
+        f"{mma[op]} {op} instructions" for op in ("HGMMA", "HMMA")))
 
 
 # ---------------------------------------------------------------------------
@@ -188,14 +238,24 @@ def phase1(gk, gx, ref, seeds_mod) -> dict[str, int]:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     # (n, K, L, column offset, extra columns) of a view into a wider P
-    # and a wider output: phase 3's chunk, phase 2's full and last
-    # chunks (CNN, K = 10: 1,237,160 = 4 x 2^18 + 188,584), ragged L,
-    # unaligned rows, a misaligned view, an aligned strided view, n over
-    # one 16-row tile, K = 1, L = 0
+    # and a wider output, whose width L + off + extra sets the rows'
+    # alignment: phase 3's chunk, phase 2's full and last chunks (CNN,
+    # K = 10: 1,237,160 = 4 x 2^18 + 188,584) in 16-byte aligned rows and
+    # at the CNN's own row stride (8-byte aligned), ragged L, 16-byte
+    # aligned views with L mod 16 in {1, 7, 15}, unaligned rows, a
+    # misaligned view, an aligned strided view, n over one and several
+    # row tiles, K = 1, K above the kernels' 32-row mask tile,
+    # K = gf_max_k(), L = 0
+    cnn = 1_237_160
     cases = [(8, 8, 1 << 18, 0, 0), (10, 10, 1 << 18, 0, 0),
              (10, 10, 188584, 0, 0), (3, 5, 4097, 0, 3), (10, 8, 1001, 0, 0),
              (6, 6, 2050, 3, 1), (6, 6, 4096, 4, 4), (19, 7, 1030, 0, 2),
-             (5, 1, 13, 0, 0), (4, 4, 0, 0, 0)]
+             (5, 1, 13, 0, 0), (4, 4, 0, 0, 0),
+             (10, 10, 1 << 18, 1 << 18, cnn - (2 << 18)),
+             (10, 10, 188584, cnn - 188584, 0), (8, 8, 4097, 0, 15),
+             (5, 6, 2055, 0, 9), (8, 8, 1039, 0, 1), (17, 7, 1030, 0, 2),
+             (33, 9, 777, 4, 3), (9, 40, 3001, 16, 7),
+             (3, gk._lib().gf_max_k(), 517, 0, 11)]
     worst = {"gf_matmul_packed": 0, "gf_matmul_packed_seeded": 0,
              "gf_matmul_unpacked": 0, "gf2_matmul": 0}
 
@@ -272,7 +332,8 @@ def phase1(gk, gx, ref, seeds_mod) -> dict[str, int]:
                 check(torch.equal((got >> b) & 1, plane),
                       f"gf2_matmul {what} bit {b} != table oracle")
     print(f"phase 1: all four kernels == plain versions, "
-          f"{len(cases)} shapes each (packed s in 1,2,4,8; unpacked s in "
+          f"{len(cases)} shapes each (K up to {max(c[1] for c in cases)}; "
+          f"packed s in 1,2,4,8; unpacked s in "
           f"1,2,3,4,8 on s-bit symbols and on bytes >= 2^s; gf2 on A bytes "
           f"0..255), max_abs_err={worst}")
     return worst
@@ -846,12 +907,13 @@ def bound_ms(n: int, K: int, L: int, s: int, kind: str
 
 
 def clmul_ops(n: int, K: int, L: int) -> int:
-    """int32 operations of the unpacked kernel's own formulation: per
-    4 symbols, row and packet row, 8 masks from A's bits (2 each) and
-    16 select-and-XORs (2 each); per 4 symbols and packet row, the two
-    masked rungs and 14 shifts."""
+    """int32 operations of the unpacked kernel's own formulation, the
+    once-per-output reduction not counted: per 4 symbols, row and packet
+    row, 16 selects (one LOP3 each, the masks read from shared memory);
+    per 4 symbols and packet row, the two masked rungs (3) and 14
+    shifts."""
     words = -(-L // 4)
-    return words * (n * K * (8 * 2 + 16 * 2) + K * (4 + 14))
+    return words * K * (n * 16 + 3 + 14)
 
 
 def time_launches(fn, inputs, reps: int) -> float:
@@ -912,6 +974,7 @@ def time_kernels(gk, gx, ref, P: torch.Tensor) -> dict:
         b_ms, b_by, n_bytes, ops = bound_ms(n, K, L, ks, kind)
         kernel_ms = min(ms, ms_b)
         plain_ms = min(plain_a, plain_b)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         out[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by}
         own = (f"; the clmul formulation's own count {clmul_ops(n, K, L)} "
@@ -923,7 +986,10 @@ def time_kernels(gk, gx, ref, P: torch.Tensor) -> dict:
               f"({n_bytes} bytes, {ops} int32 ops), "
               f"{n_bytes / kernel_ms / 1e6:.3f} GB/s, "
               f"{ops / kernel_ms / 1e9:.3f} T int32 op/s, "
-              f"{100 * b_ms / kernel_ms:.2f}% of the {b_by} bound{own}")
+              f"{100 * b_ms / kernel_ms:.2f}% of the {b_by} bound"
+              + (f", {100 * bytes_ms / kernel_ms:.2f}% of the bytes bound "
+                 f"({bytes_ms:.6f} ms)" if b_by != "bytes" else "")
+              + own)
     return out
 
 
@@ -1035,13 +1101,9 @@ def main() -> None:
     print(f"build: {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(build.NVCC_FLAGS)})")
-    for lib in libs:
-        log = lib.with_name(lib.name + ".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas: {line.strip()}")
-    sass_mma(libs[KERNEL_SOURCES.index("flash_attention")])
+    ptxas_report(libs)
+    sass_report(libs[KERNEL_SOURCES.index("gf_matmul")],
+                libs[KERNEL_SOURCES.index("flash_attention")])
 
     wrappers = gk.WRAPPERS + gx.WRAPPERS + fa.WRAPPERS
     errors = phase1(gk, gx, ref, seeds_mod)

@@ -9,7 +9,9 @@ flash_attention.py — wrapper of the causal flash-attention kernel
 ops.py         — `gf_matmul` through the registry, `gf2_combine`,
                  `flash_attention`
 csrc/          — the CUDA C++ sources (sm_90a)
-build.py       — nvcc at first use into build/kernels/, ctypes loading
+build.py       — nvcc at first use into build/kernels/, ctypes loading,
+                 ptxas and SASS reports of a built library
+gf_bringup.py  — A/B of gf_matmul.cu designs on the card (`python -m`)
 ref.py         — plain PyTorch versions: table oracle + the kernels'
                  arithmetic in tensor ops
 """

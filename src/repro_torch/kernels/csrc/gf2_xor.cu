@@ -21,8 +21,8 @@
 // Contract (checked by the Python wrapper): A (n, K) uint8 contiguous;
 // P (K, L) uint8 with unit column stride and row stride ldp; C (n, L)
 // uint8 with unit column stride and row stride ldc.  Rows whose address
-// and stride are 16-byte aligned take one 16-byte load, 4-byte aligned
-// ones four 4-byte loads, others byte loads; a ragged tail is masked
+// and stride are 16-byte aligned take one 16-byte load, 4- or 8-byte
+// aligned ones four 4-byte loads, others byte loads; a ragged tail is masked
 // here, not padded by the caller.  L = 0 returns at once.  The blocks
 // share nothing, so they run in any order.
 #include <cstdint>
@@ -39,13 +39,13 @@ constexpr int kThreads = 128;     // 16-byte groups per block, one per thread
 constexpr int kBytes = 16;        // bytes per thread per row
 
 // 16 bytes starting at byte 16·j of a row of length L; bytes past L
-// read as 0.  `align` is the row alignment (16, 4 or 1).
+// read as 0.  `align` is the row alignment (16, 8, 4 or 1).
 __device__ __forceinline__ uint4 load16(const uint8_t* row, long long j,
                                         long long L, int align) {
   const long long b0 = static_cast<long long>(kBytes) * j;
   if (b0 + kBytes <= L) {
     if (align == 16) return *reinterpret_cast<const uint4*>(row + b0);
-    if (align == 4) {
+    if (align >= 4) {
       const uint32_t* w = reinterpret_cast<const uint32_t*>(row + b0);
       return make_uint4(w[0], w[1], w[2], w[3]);
     }
@@ -70,7 +70,7 @@ __device__ __forceinline__ void store16(uint8_t* row, long long j, long long L,
       *reinterpret_cast<uint4*>(row + b0) = v;
       return;
     }
-    if (align == 4) {
+    if (align >= 4) {
       uint32_t* w = reinterpret_cast<uint32_t*>(row + b0);
       w[0] = v.x;
       w[1] = v.y;

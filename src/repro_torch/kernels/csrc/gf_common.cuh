@@ -13,12 +13,13 @@ namespace gf {
 constexpr int kRows = 16;                // output rows per block
 constexpr int kSmemBytes = 48 * 1024;    // default dynamic shared memory
 
-// Largest of 16, 4 and 1 that divides both a row's address and its
+// Largest of 16, 8, 4 and 1 that divides both a row's address and its
 // stride: the widest load every row of the matrix can take.
 inline int row_alignment(const void* p, long long ld) {
   const auto a = reinterpret_cast<uintptr_t>(p);
-  if (a % 16 == 0 && ld % 16 == 0) return 16;
-  if (a % 4 == 0 && ld % 4 == 0) return 4;
+  for (int w = 16; w > 1; w /= 2) {
+    if (w != 2 && a % w == 0 && ld % w == 0) return w;
+  }
   return 1;
 }
 

@@ -268,6 +268,77 @@ def test_unpacked_kernel_lane_arithmetic_matches_pallas(jref, s):
     np.testing.assert_array_equal(_unpacked_kernel_emulated(A, P, s), want)
 
 
+# the packed kernels' mask tile: packet rows whose masks a block holds
+MASK_TILE = 32
+
+
+def _packed_kernel_emulated(coeffs_of_tile, P: np.ndarray, s: int,
+                            n: int) -> np.ndarray:
+    """`gf_matmul_packed_kernel`'s order of work in numpy uint32: for
+    each tile of MASK_TILE packet rows, the coefficients of the tile
+    (`coeffs_of_tile(k0, kt)` -> (n, kt) bytes) expanded to 32-bit select
+    masks, then per packet row the xtime ladder and one
+    ``acc ^= rung & mask`` per (row, bit); repacked to bytes."""
+    from repro_torch.core.gf import PRIMITIVE_POLY
+    one = np.uint32(0x01010101)
+    low = np.uint32(((1 << (s - 1)) - 1) * 0x01010101)
+    red = np.uint32(PRIMITIVE_POLY[s] ^ (1 << s))
+
+    def xtime(w):
+        return ((w & low) << np.uint32(1)) ^ (
+            ((w >> np.uint32(s - 1)) & one) * red)
+
+    K, L = P.shape
+    Pp = np.zeros((K, -(-L // 4) * 4), np.uint8)
+    Pp[:, :L] = P
+    W = Pp.view("<u4")
+    acc = np.zeros((n, W.shape[1]), np.uint32)
+    for k0 in range(0, K, MASK_TILE):
+        kt = min(MASK_TILE, K - k0)
+        coeff = coeffs_of_tile(k0, kt).astype(np.uint32)
+        bits = (coeff[:, :, None] >> np.arange(8, dtype=np.uint32)) & 1
+        masks = (np.uint32(0) - bits).astype(np.uint32)   # (n, kt, 8)
+        for kk in range(kt):
+            rung = W[k0 + kk]
+            for i in range(s):
+                acc ^= rung[None, :] & masks[:, kk, i, None]
+                rung = xtime(rung)
+    return np.ascontiguousarray(acc).view(np.uint8)[:, :L]
+
+
+@pytest.mark.parametrize("s", range(1, 9))
+def test_packed_kernel_mask_tiles_match_reference(jref, s):
+    """The CUDA kernels cannot run here; their tiling of K through the
+    select masks can.  K = 70 spans three mask tiles; the seeded tile
+    regenerates Threefry words k0/4 .. (k0 + kt)/4 of each seed, as the
+    kernel's counter does.  Held against the JAX package's plain
+    versions of its Pallas kernels (in interpret mode the kernels
+    compile anew for each K, ~10 s a call; the tests above hold them on
+    `SHAPES`) and the table oracle."""
+    rng = np.random.default_rng(90 + s)
+    n, K, L = 5, 70, 29
+    A = rng.integers(0, 1 << s, (n, K)).astype(np.uint8)
+    P = rng.integers(0, 1 << s, (K, L)).astype(np.uint8)
+    seeds = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(jref.ref.gf_matmul_packed_ref(A, P, s))
+    got = _packed_kernel_emulated(lambda k0, kt: A[:, k0:k0 + kt], P, s, n)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tref.gf_matmul_ref(_t(A), _t(P), s).numpy(),
+                                  want)
+
+    def seeded_tile(k0, kt):
+        ctr = torch.arange(k0 // 4, k0 // 4 + -(-kt // 4))
+        w0, _ = tseeds.threefry2x32(tseeds.as_seeds(seeds)[:, None],
+                                    tseeds.KEY_SALT, ctr[None, :], 0)
+        b = (w0[:, :, None] >> (8 * torch.arange(4))) & ((1 << s) - 1)
+        return b.reshape(n, -1)[:, :kt].numpy()
+
+    want = np.asarray(jref.ref.gf_matmul_packed_seeded_ref(
+        jref.jnp.asarray(seeds), P, s))
+    np.testing.assert_array_equal(
+        _packed_kernel_emulated(seeded_tile, P, s, n), want)
+
+
 @pytest.mark.parametrize("n,K,L", SHAPES)
 def test_gf2_plain_matches_pallas(jref, n, K, L):
     rng = np.random.default_rng(n * 100 + K * 10 + L)
@@ -354,16 +425,36 @@ def test_unpacked_wrappers_on_cpu_launch_nothing_and_check_operands():
         tgx.gf2_matmul(A, P, out=torch.empty((2, 7), dtype=torch.uint8))
 
 
+# the paper CNN's row length: its rows are 8-byte aligned, never 16
+CNN_L = 1_237_160
+
+
+def _card_cases(kmax: int):
+    """(n, K, L, column offset, extra columns) of a view into a wider P
+    and a wider output, the width L + off + extra setting the row
+    alignment: the old cases; 16-byte aligned views with L mod 16 in
+    {1, 7, 15}; CNN rows (8-byte aligned) cut to a chunk and to the last
+    chunk; n over one and several row tiles; K above the mask tile and
+    K = `gf_max_k()`; L = 0."""
+    return [(8, 8, 1 << 16, 0, 4), (10, 8, 1001, 0, 4), (19, 7, 1030, 3, 4),
+            (3, 5, 4097, 4, 4), (8, 8, 4097, 0, 15), (5, 6, 2055, 0, 9),
+            (8, 8, 1039, 0, 1), (10, 10, 1 << 18, 1 << 18, CNN_L - (2 << 18)),
+            (10, 10, 188_584, CNN_L - 188_584, 0), (17, 7, 1030, 0, 2),
+            (33, 9, 777, 4, 3), (9, 40, 3001, 16, 7), (3, kmax, 517, 0, 11),
+            (4, 4, 0, 0, 4)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [1, 2, 4, 8])
 def test_cuda_kernels_match_plain_versions(cuda_device, s):
     """Both CUDA kernels == their plain versions on the card, byte for
-    byte: ragged L, n != K, n over one row tile, strided and misaligned
-    column views, and L = 0 (no launch)."""
+    byte (`_card_cases`): ragged L, n != K, n over several row tiles,
+    strided, misaligned and 16-, 8- and 4-byte aligned column views, K
+    above the mask tile and at the largest K accepted, and L = 0 (no
+    launch)."""
     g = torch.Generator(device=cuda_device).manual_seed(s)
-    for n, K, L, off in [(8, 8, 1 << 16, 0), (10, 8, 1001, 0),
-                         (19, 7, 1030, 3), (3, 5, 4097, 4), (4, 4, 0, 0)]:
-        wide = torch.randint(0, 1 << s, (K, L + off + 4), generator=g,
+    for n, K, L, off, extra in _card_cases(tgm._lib().gf_max_k()):
+        wide = torch.randint(0, 1 << s, (K, L + off + extra), generator=g,
                              device=cuda_device, dtype=torch.uint8)
         P = wide[:, off:off + L]
         A = torch.randint(0, 1 << s, (n, K), generator=g,
@@ -372,7 +463,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s):
                               device=cuda_device, dtype=torch.int64)
         # the seeded result goes into a column view of a wider output,
         # as the engine's chunk loop hands it over
-        wide_out = torch.zeros((n, L + off + 4), device=cuda_device,
+        wide_out = torch.zeros((n, L + off + extra), device=cuda_device,
                                dtype=torch.uint8)
         before = tgm.launch_counts()
         got = tgm.gf_matmul_packed(A, P, s=s)
@@ -386,6 +477,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s):
         assert torch.equal(got, tref.gf_matmul_packed_ref(A, P, s))
         assert torch.equal(got_s,
                            tref.gf_matmul_packed_seeded_ref(seeds, P, s))
+        assert torch.equal(got_s, tgm.gf_matmul_packed(
+            tseeds.expand_rows(seeds, K, s), P, s=s))
+        if 0 < L <= 4097:                      # independent table oracle
+            assert torch.equal(got, tref.gf_matmul_ref(A, P, s))
         assert not wide_out[:, :off].any() and \
             not wide_out[:, off + L:].any()
 
@@ -395,18 +490,16 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s):
 def test_cuda_unpacked_kernels_match_plain_versions(cuda_device, s):
     """`gf_matmul_unpacked` (bytes 0..255, so >= 2^s too) and
     `gf2_matmul` (A bytes 0..255, raw P bytes) == their plain versions
-    on the card, byte for byte: ragged L, n over one row tile, views at
-    offsets 0, 3 and 4 of P and of the output, K = 1 and L = 0."""
+    on the card, byte for byte: the cases of `_card_cases` and K = 1."""
     g = torch.Generator(device=cuda_device).manual_seed(10 + s)
-    for n, K, L, off in [(8, 8, 1 << 16, 0), (10, 8, 1001, 0),
-                         (19, 7, 1030, 3), (3, 5, 4097, 4), (5, 1, 13, 0),
-                         (4, 4, 0, 0)]:
-        wide = torch.randint(0, 256, (K, L + off + 4), generator=g,
+    for n, K, L, off, extra in (_card_cases(tgm._lib().gf_max_k())
+                                + [(5, 1, 13, 0, 4)]):
+        wide = torch.randint(0, 256, (K, L + off + extra), generator=g,
                              device=cuda_device, dtype=torch.uint8)
         P = wide[:, off:off + L]
         A = torch.randint(0, 256, (n, K), generator=g, device=cuda_device,
                           dtype=torch.uint8)
-        wide_out = torch.zeros((n, L + off + 4), device=cuda_device,
+        wide_out = torch.zeros((n, L + off + extra), device=cuda_device,
                                dtype=torch.uint8)
         before = tgm.gf_matmul_unpacked.launches, tgx.gf2_matmul.launches
         got = tgm.gf_matmul_unpacked(A, P, s=s,
