@@ -12,8 +12,8 @@ failing on the first wrong result:
    aligned row stride), ragged L (16-byte aligned views with L mod 16 in
    {1, 7, 15}), n != K, n over one and two row tiles, strided and
    misaligned column views of P and of the output, K = 1, K above the
-   mask tile, K = `gf_max_k()`, L = 0.  The lane-packed kernels for s in
-   {1, 2, 4, 8};
+   mask tile, K = 4,099 (many mask tiles: no kernel bounds K), L = 0.
+   The lane-packed kernels for s in {1, 2, 4, 8};
    `gf_matmul_unpacked` for s in {1, 2, 3, 4, 8}, also on bytes >= 2^s;
    `gf2_matmul` on A bytes 0..255 and raw P bytes; at small L all of
    them against the table oracle too;
@@ -52,11 +52,11 @@ ragged S (100, 2049), the bf16 kernel's 128-key tile edges (129, 256,
 300), non-causal, strided views, views TMA cannot read in place (each
 still one launch) and phase 7's shape.  After the build it prints
 ptxas' registers and spills of every kernel instance, the SASS census
-of the GF kernels' s = 8 instances, whole and of their hottest basic
-block, the step of a full tile (LOP3, of them the selects, SHF, IADD3,
-IMAD, ISETP, and shared and global loads by width; the selects per word
-and packet row) and the count of tensor-core instructions (HGMMA,
-HMMA) in the flash library.
+of the GF kernels' s = 8 instances and of the XOR kernel's 8-row
+instance, whole and of their hottest basic block, the step of a full
+tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
+and global loads by width; the selects per word and packet row) and the
+count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
 Each of phases 2-7 drives the main path with every launch count set to
 0 just before it and read just after, and fails if a kernel of that
@@ -64,7 +64,8 @@ path was not launched.  Then it traces one round per 500M configuration,
 one prefill and one serve step with torch.profiler (device busy share, device time per
 kernel), times each GF kernel and its plain version at the chunk shape
 (8 x 262,144; beside the operations bound, the share of the bytes
-bound) and the flash kernel, its plain version and PyTorch's
+bound; the XOR kernel also at phase 6's leg shapes, 10 x 8 and 8 x 10)
+and the flash kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
@@ -191,37 +192,49 @@ def ptxas_report(libs) -> None:
               f" registers, {spills} bytes of spills in all")
 
 
-# what the SASS census prints of each GF kernel's s = 8 instance
+# what the SASS census prints of each GF kernel's s = 8 instance and of
+# the XOR kernel's 8-row one (LDGSTS: cp.async, global to shared)
 SASS_OPS = ("LOP3", "LOP3.select", "SHF", "IADD3", "IMAD", "ISETP",
             "LDS.128", "LDS.32", "LDG.128", "LDG.64", "LDG.32", "LDG.U8",
-            "STG.128", "STG.64", "STG.32", "STG.U8")
+            "LDGSTS.128", "LDGSTS.64", "LDGSTS.32", "STG.128", "STG.64",
+            "STG.32", "STG.U8")
 
 
-def sass_report(gf_lib: pathlib.Path, flash_lib: pathlib.Path) -> None:
-    """Print the static SASS census of the GF kernels' s = 8 instances,
-    whole and of their hottest basic block (the step of a full tile,
-    one packet row: selects per word = LOP3.select / words per thread,
-    the third template argument of the packed kernels, the second of
-    the unpacked), and the count of tensor-core instructions (HGMMA:
-    wgmma; HMMA: mma.sync) in the flash library, from the toolkit's
-    cuobjdump where it has one."""
+def sass_report(gf_lib: pathlib.Path, xor_lib: pathlib.Path,
+                flash_lib: pathlib.Path) -> None:
+    """Print the static SASS census of the GF kernels' s = 8 instances
+    and of the XOR kernel's 8-row instance (the chunk's), whole and of
+    their hottest basic block (the step of a full tile, one packet row:
+    selects per word = LOP3.select / words per thread, the third
+    template argument of the packed kernels, the second of the
+    unpacked; for the XOR kernel selects per row = LOP3.select / 8),
+    and the count of tensor-core instructions (HGMMA: wgmma; HMMA:
+    mma.sync) in the flash library, from the toolkit's cuobjdump where
+    it has one."""
     from repro_torch.kernels import build
 
     gf = build.sass_census(gf_lib)
     if not gf:
         print(f"sass: no cuobjdump beside {build.nvcc()}: not counted")
         return
-    for label, (whole, step) in sorted(gf.items()):
+    xor = build.sass_census(xor_lib).get("gf2_matmul_kernel<8>")
+    check(xor is not None, "sass: no gf2_matmul_kernel<8> in the XOR library")
+    for label, (whole, step) in sorted(gf.items()) + [
+            ("gf2_matmul_kernel<8>", xor)]:
         if "<8" not in label:
             continue
         args = label.split(", ")
-        words = int(args[2 if label.startswith("gf_matmul_packed") else 1])
+        if label.startswith("gf2_matmul"):
+            per, unit = 8, "row"
+        else:
+            per = int(args[2 if label.startswith("gf_matmul_packed") else 1])
+            unit = "word"
         print(f"sass: {label}: kernel " + ", ".join(
             f"{whole[op]} {op}" for op in SASS_OPS))
         print(f"sass: {label}: step {step['instructions']} "
               f"instructions, " + ", ".join(
                   f"{step[op]} {op}" for op in SASS_OPS)
-              + f"; {step['LOP3.select'] / words:g} selects per word and "
+              + f"; {step['LOP3.select'] / per:g} selects per {unit} and "
               f"packet row")
     mma = sum((whole for whole, _ in build.sass_census(flash_lib).values()),
               start=Counter())
@@ -244,8 +257,8 @@ def phase1(gk, gx, ref, seeds_mod) -> dict[str, int]:
     # at the CNN's own row stride (8-byte aligned), ragged L, 16-byte
     # aligned views with L mod 16 in {1, 7, 15}, unaligned rows, a
     # misaligned view, an aligned strided view, n over one and several
-    # row tiles, K = 1, K above the kernels' 32-row mask tile,
-    # K = gf_max_k(), L = 0
+    # row tiles, K = 1, K above the kernels' 32-row mask tile, K = 4,099
+    # (many mask tiles: no kernel bounds K), L = 0
     cnn = 1_237_160
     cases = [(8, 8, 1 << 18, 0, 0), (10, 10, 1 << 18, 0, 0),
              (10, 10, 188584, 0, 0), (3, 5, 4097, 0, 3), (10, 8, 1001, 0, 0),
@@ -255,7 +268,7 @@ def phase1(gk, gx, ref, seeds_mod) -> dict[str, int]:
              (10, 10, 188584, cnn - 188584, 0), (8, 8, 4097, 0, 15),
              (5, 6, 2055, 0, 9), (8, 8, 1039, 0, 1), (17, 7, 1030, 0, 2),
              (33, 9, 777, 4, 3), (9, 40, 3001, 16, 7),
-             (3, gk._lib().gf_max_k(), 517, 0, 11)]
+             (3, 4099, 517, 0, 11)]
     worst = {"gf_matmul_packed": 0, "gf_matmul_packed_seeded": 0,
              "gf_matmul_unpacked": 0, "gf2_matmul": 0}
 
@@ -990,6 +1003,22 @@ def time_kernels(gk, gx, ref, P: torch.Tensor) -> dict:
               + (f", {100 * bytes_ms / kernel_ms:.2f}% of the bytes bound "
                  f"({bytes_ms:.6f} ms)" if b_by != "bytes" else "")
               + own)
+    # the XOR kernel at phase 6's RowMix legs: encode (10, 8), then A_post
+    # (8, 10) on the 10 delivered rows, here 10-row views of the payload
+    P10 = P.view(-1)[:10 * len(chunks) * L].view(10, len(chunks) * L)
+    for n_leg, K_leg, X in ((10, 8, P), (8, 10, P10)):
+        rows = torch.randint(0, 256, (n_leg, K_leg), generator=g,
+                             device="cuda", dtype=torch.uint8)
+        views = [X[:, c * L:(c + 1) * L] for c in range(len(chunks))]
+        ms, ms_b = (time_launches(lambda V, rows=rows: gx.gf2_matmul(rows, V),
+                                  views, 400) for _ in range(2))
+        b_ms, b_by, n_bytes, ops = bound_ms(n_leg, K_leg, L, 1, "xor")
+        kernel_ms = min(ms, ms_b)
+        print(f"timing gf2_matmul at phase 6's leg (n,K,L)=({n_leg},{K_leg},"
+              f"{L}) s=1: kernel {ms:.6f} / {ms_b:.6f} ms, bound {b_ms:.6f} "
+              f"ms by {b_by} ({n_bytes} bytes, {ops} int32 ops), "
+              f"{n_bytes / kernel_ms / 1e6:.3f} GB/s, "
+              f"{100 * b_ms / kernel_ms:.2f}% of the {b_by} bound")
     return out
 
 
@@ -1102,8 +1131,8 @@ def main() -> None:
           f"{time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(build.NVCC_FLAGS)})")
     ptxas_report(libs)
-    sass_report(libs[KERNEL_SOURCES.index("gf_matmul")],
-                libs[KERNEL_SOURCES.index("flash_attention")])
+    sass_report(*(libs[KERNEL_SOURCES.index(name)] for name in (
+        "gf_matmul", "gf2_xor", "flash_attention")))
 
     wrappers = gk.WRAPPERS + gx.WRAPPERS + fa.WRAPPERS
     errors = phase1(gk, gx, ref, seeds_mod)

@@ -11,7 +11,8 @@ ops.py         — `gf_matmul` through the registry, `gf2_combine`,
 csrc/          — the CUDA C++ sources (sm_90a)
 build.py       — nvcc at first use into build/kernels/, ctypes loading,
                  ptxas and SASS reports of a built library
-gf_bringup.py  — A/B of gf_matmul.cu designs on the card (`python -m`)
+gf_bringup.py  — A/B of gf_matmul.cu or gf2_xor.cu designs on the card
+                 (`python -m`)
 ref.py         — plain PyTorch versions: table oracle + the kernels'
                  arithmetic in tensor ops
 """

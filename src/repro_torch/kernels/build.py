@@ -135,10 +135,10 @@ _WIDTHS = (".128", ".64", ".U8", ".S8", ".U16", ".S16")
 
 def _opcode(op: str, mods: str, operands: str) -> list[str]:
     """The census keys of one instruction: memory instructions with their
-    width (``LDG.128``, ``LDS.32``), and a LOP3 computing a ^ (b & c) on
-    registers alone, the form of a select ``acc ^= rung & mask``, also
-    as ``LOP3.select``."""
-    if op in ("LDG", "LDS", "STG", "STS"):
+    width (``LDG.128``, ``LDS.32``, ``LDGSTS.128`` for a cp.async), and a
+    LOP3 computing a ^ (b & c) on registers alone, the form of a select
+    ``acc ^= rung & mask``, also as ``LOP3.select``."""
+    if op in ("LDG", "LDS", "STG", "STS", "LDGSTS"):
         return [op + next((w for w in _WIDTHS if w in mods), ".32")]
     if (op == "LOP3" and re.search(r"0x(78|6c|6a)\b", operands)
             and len(re.findall(r"0x", operands)) == 1):
@@ -149,8 +149,9 @@ def _opcode(op: str, mods: str, operands: str) -> list[str]:
 def _hot_block(body: list[tuple[int, list[str], str]]) -> Counter:
     """The census of a kernel's hottest basic block (no branch into it
     or out of it but at its ends): the one with the most selects, the
-    step of a full tile.  ``instructions`` counts each instruction
-    once."""
+    step of a full tile, and of blocks with as many the one that reaches
+    them in the fewest instructions (the step of the widest loads, not
+    of byte loads).  ``instructions`` counts each instruction once."""
     targets = {int(m.group(1), 16) for _, keys, operands in body
                if keys[0] == "BRA"
                and (m := re.match(r"`?\(?0x([0-9a-f]+)", operands.strip()))}
@@ -160,7 +161,9 @@ def _hot_block(body: list[tuple[int, list[str], str]]) -> Counter:
             block = Counter()
         block.update(keys)
         block["instructions"] += 1
-        if block["LOP3.select"] > best["LOP3.select"]:
+        if (block["LOP3.select"] > best["LOP3.select"]
+                or block["LOP3.select"] == best["LOP3.select"] > 0
+                and block["instructions"] < best["instructions"]):
             best = block.copy()
         if keys[0] in ("BRA", "EXIT", "BAR"):
             block = Counter()

@@ -1,5 +1,6 @@
-// What the GF kernel sources share: the row tile, the alignment test
-// that picks a row's widest load, and the launcher's device handling.
+// What the GF kernel sources share: the alignment test that picks a
+// row's widest load, and the launcher's device handling.  Each source
+// tiles its own rows and masks; neither bounds K.
 // Each source that includes it builds into its own library
 // (kernels/build.py hashes this header with it).
 #pragma once
@@ -9,9 +10,6 @@
 #include <cuda_runtime.h>
 
 namespace gf {
-
-constexpr int kRows = 16;                // output rows per block
-constexpr int kSmemBytes = 48 * 1024;    // default dynamic shared memory
 
 // Largest of 16, 8, 4 and 1 that divides both a row's address and its
 // stride: the widest load every row of the matrix can take.

@@ -97,8 +97,6 @@
 
 namespace {
 
-using gf::kRows;
-
 constexpr int kThreads = 256;     // threads per block
 constexpr int kKTile = 32;        // packet rows whose masks a block holds
 constexpr int kGroup = 4;         // packet rows whose loads fly together
@@ -605,12 +603,6 @@ int launch_unpacked(const uint8_t* A, const uint8_t* P, long long ldp,
 }  // namespace
 
 extern "C" {
-
-// Largest K the wrappers accept: the XOR library's limit (its mask tile
-// fills the default 48 KB of shared memory at 16 rows), so every kernel
-// of the registry takes the same K.  These kernels tile K through their
-// masks and have no limit of their own.
-int gf_max_k() { return gf::kSmemBytes / kRows; }
 
 int gf_matmul_packed(const void* A, const void* P, long long ldp, void* C,
                      long long ldc, int n, int K, long long L, int s,

@@ -91,14 +91,11 @@ def _lib() -> ctypes.CDLL:
 
 def declare(lib: ctypes.CDLL, kernels: tuple[str, ...]) -> ctypes.CDLL:
     """Declare the types of `kernels` (each with `_SIGNATURE`) and of
-    the helpers every GF library exports (`gf_max_k`,
-    `gf_error_string`)."""
+    the helper every GF library exports (`gf_error_string`)."""
     for name in kernels:
         fn = getattr(lib, name)
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
-    lib.gf_max_k.argtypes = []
-    lib.gf_max_k.restype = ctypes.c_int
     lib.gf_error_string.argtypes = [ctypes.c_int]
     lib.gf_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,9 +153,6 @@ def launch(lib: ctypes.CDLL, wrapper, rows: torch.Tensor, P: torch.Tensor,
         return out
     if P.stride(1) != 1:          # rows may be strided; columns may not
         P = P.contiguous()
-    if K > lib.gf_max_k():
-        raise ValueError(f"K={K} exceeds the kernel's shared-memory tile "
-                         f"(max {lib.gf_max_k()})")
     stream = torch.cuda.current_stream(P.device).cuda_stream
     fn_name = wrapper.__name__
     err = getattr(lib, fn_name)(rows.data_ptr(), P.data_ptr(), P.stride(0),

@@ -339,6 +339,58 @@ def test_packed_kernel_mask_tiles_match_reference(jref, s):
         _packed_kernel_emulated(seeded_tile, P, s, n), want)
 
 
+# the XOR kernel's tiles: packet rows whose masks a block holds, most
+# output rows per block
+XOR_MASK_TILE, XOR_TILE_ROWS = 32, 16
+
+
+def _gf2_kernel_emulated(A: np.ndarray, P: np.ndarray) -> np.ndarray:
+    """`gf2_matmul_kernel<R>`'s order of work in numpy uint32: balanced
+    row tiles of at most XOR_TILE_ROWS rows, R = the tile rounded up to
+    4 with zero masks past n; per tile of XOR_MASK_TILE packet rows, bit
+    0 of A expanded to 32-bit 0 / ~0 masks [k][row]; per packet row one
+    ``acc ^= P_k & mask`` per row and word; only the tile's real rows
+    stored, repacked to bytes."""
+    n, K = A.shape
+    L = P.shape[1]
+    Pp = np.zeros((K, -(-L // 4) * 4), np.uint8)
+    Pp[:, :L] = P
+    W = Pp.view("<u4")
+    tiles = -(-n // XOR_TILE_ROWS)
+    tile = -(-n // tiles)
+    R = -(-tile // 4) * 4
+    out = np.zeros((n, W.shape[1]), np.uint32)
+    for row0 in range(0, n, tile):
+        rows = min(tile, n - row0)
+        acc = np.zeros((R, W.shape[1]), np.uint32)
+        for k0 in range(0, K, XOR_MASK_TILE):
+            kt = min(XOR_MASK_TILE, K - k0)
+            masks = np.zeros((kt, R), np.uint32)
+            masks[:, :rows] = np.uint32(0) - (
+                A[row0:row0 + rows, k0:k0 + kt].T.astype(np.uint32) & 1)
+            for kk in range(kt):
+                acc ^= W[k0 + kk][None, :] & masks[kk][:, None]
+        out[row0:row0 + rows] = acc[:rows]
+    return np.ascontiguousarray(out).view(np.uint8)[:, :L]
+
+
+def test_gf2_kernel_mask_tiles_match_reference(jref):
+    """The CUDA kernel cannot run here; its tiling can.  K = 70 spans
+    three mask tiles, the last partial; n = 19 takes two
+    balanced row tiles of 10 rows, each an R = 12 tile with two rows of
+    zero masks.  A's bytes 0..255 (bit 0 read), P's raw bytes, ragged
+    L; held against the JAX package's plain version of its Pallas
+    kernel and the port's plain version."""
+    rng = np.random.default_rng(95)
+    n, K, L = 19, 70, 29
+    A = rng.integers(0, 256, (n, K)).astype(np.uint8)
+    P = rng.integers(0, 256, (K, L)).astype(np.uint8)
+    want = np.asarray(jref.ref.gf2_matmul_ref(A, P))
+    np.testing.assert_array_equal(_gf2_kernel_emulated(A, P), want)
+    np.testing.assert_array_equal(tref.gf2_matmul_ref(_t(A), _t(P)).numpy(),
+                                  want)
+
+
 @pytest.mark.parametrize("n,K,L", SHAPES)
 def test_gf2_plain_matches_pallas(jref, n, K, L):
     rng = np.random.default_rng(n * 100 + K * 10 + L)
@@ -425,22 +477,57 @@ def test_unpacked_wrappers_on_cpu_launch_nothing_and_check_operands():
         tgx.gf2_matmul(A, P, out=torch.empty((2, 7), dtype=torch.uint8))
 
 
+def test_sass_census_counts_copies_and_takes_the_leanest_step():
+    """`build.sass_census`'s parsing, which needs no card: a cp.async
+    (LDGSTS) counts by width like a load, and of two basic blocks with
+    as many selects the hottest is the one reaching them in fewer
+    instructions (the XOR kernel's copied step, not its byte loads)."""
+    from repro_torch.kernels import build
+    assert build._opcode("LDGSTS", ".E.BYPASS.LTC128B.128",
+                         "[R1], desc[UR4][R2.64]") == ["LDGSTS.128"]
+    assert build._opcode("LDGSTS", ".E.LTC128B", "[R1], [R2.64]") == [
+        "LDGSTS.32"]
+    select = build._opcode("LOP3", ".LUT", "R4, R4, R5, R6, 0x78, !PT")
+    assert select == ["LOP3", "LOP3.select"]
+    body = [(0x00, ["LDG.U8"], ""), (0x10, ["LDG.U8"], ""),
+            (0x20, select, ""), (0x30, ["BRA"], "0x40"),
+            (0x40, ["LDS.128"], ""), (0x50, select, ""),
+            (0x60, ["EXIT"], "")]
+    hot = build._hot_block(body)
+    assert (hot["LOP3.select"], hot["LDS.128"], hot["LDG.U8"],
+            hot["instructions"]) == (1, 1, 0, 2)
+
+
+def test_bringup_tells_the_gf_sources_apart():
+    """`gf_bringup` checks and times a variant by the C interface its
+    source exports."""
+    from repro_torch.kernels import build, gf_bringup
+    kinds = {name: gf_bringup.source_kind(
+        (build.CSRC / f"{name}.cu").read_text())
+        for name in ("gf_matmul", "gf2_xor")}
+    assert kinds == {"gf_matmul": "gf_matmul", "gf2_xor": "gf2_xor"}
+    assert gf_bringup.SOURCES["gf2_xor"]["census"].search(
+        "gf2_matmul_kernel<8>")
+    assert not gf_bringup.SOURCES["gf2_xor"]["census"].search(
+        "gf2_matmul_kernel<12>")
+
+
 # the paper CNN's row length: its rows are 8-byte aligned, never 16
 CNN_L = 1_237_160
 
 
-def _card_cases(kmax: int):
+def _card_cases():
     """(n, K, L, column offset, extra columns) of a view into a wider P
     and a wider output, the width L + off + extra setting the row
     alignment: the old cases; 16-byte aligned views with L mod 16 in
     {1, 7, 15}; CNN rows (8-byte aligned) cut to a chunk and to the last
     chunk; n over one and several row tiles; K above the mask tile and
-    K = `gf_max_k()`; L = 0."""
+    above 3,072 (many mask tiles; the kernels have no K limit); L = 0."""
     return [(8, 8, 1 << 16, 0, 4), (10, 8, 1001, 0, 4), (19, 7, 1030, 3, 4),
             (3, 5, 4097, 4, 4), (8, 8, 4097, 0, 15), (5, 6, 2055, 0, 9),
             (8, 8, 1039, 0, 1), (10, 10, 1 << 18, 1 << 18, CNN_L - (2 << 18)),
             (10, 10, 188_584, CNN_L - 188_584, 0), (17, 7, 1030, 0, 2),
-            (33, 9, 777, 4, 3), (9, 40, 3001, 16, 7), (3, kmax, 517, 0, 11),
+            (33, 9, 777, 4, 3), (9, 40, 3001, 16, 7), (3, 4099, 517, 0, 11),
             (4, 4, 0, 0, 4)]
 
 
@@ -450,10 +537,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s):
     """Both CUDA kernels == their plain versions on the card, byte for
     byte (`_card_cases`): ragged L, n != K, n over several row tiles,
     strided, misaligned and 16-, 8- and 4-byte aligned column views, K
-    above the mask tile and at the largest K accepted, and L = 0 (no
-    launch)."""
+    above the mask tile and above 3,072, and L = 0 (no launch)."""
     g = torch.Generator(device=cuda_device).manual_seed(s)
-    for n, K, L, off, extra in _card_cases(tgm._lib().gf_max_k()):
+    for n, K, L, off, extra in _card_cases():
         wide = torch.randint(0, 1 << s, (K, L + off + extra), generator=g,
                              device=cuda_device, dtype=torch.uint8)
         P = wide[:, off:off + L]
@@ -490,21 +576,24 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s):
 def test_cuda_unpacked_kernels_match_plain_versions(cuda_device, s):
     """`gf_matmul_unpacked` (bytes 0..255, so >= 2^s too) and
     `gf2_matmul` (A bytes 0..255, raw P bytes) == their plain versions
-    on the card, byte for byte: the cases of `_card_cases` and K = 1."""
+    on the card, byte for byte: the cases of `_card_cases` and K = 1,
+    each written into a column view of a wider output whose other
+    columns stay untouched."""
     g = torch.Generator(device=cuda_device).manual_seed(10 + s)
-    for n, K, L, off, extra in (_card_cases(tgm._lib().gf_max_k())
-                                + [(5, 1, 13, 0, 4)]):
+    for n, K, L, off, extra in _card_cases() + [(5, 1, 13, 0, 4)]:
         wide = torch.randint(0, 256, (K, L + off + extra), generator=g,
                              device=cuda_device, dtype=torch.uint8)
         P = wide[:, off:off + L]
         A = torch.randint(0, 256, (n, K), generator=g, device=cuda_device,
                           dtype=torch.uint8)
-        wide_out = torch.zeros((n, L + off + extra), device=cuda_device,
-                               dtype=torch.uint8)
+        wide_out, wide_out2 = (torch.zeros((n, L + off + extra),
+                                           device=cuda_device,
+                                           dtype=torch.uint8)
+                               for _ in range(2))
         before = tgm.gf_matmul_unpacked.launches, tgx.gf2_matmul.launches
         got = tgm.gf_matmul_unpacked(A, P, s=s,
                                      out=wide_out[:, off:off + L])
-        got2 = tgx.gf2_matmul(A, P)
+        got2 = tgx.gf2_matmul(A, P, out=wide_out2[:, off:off + L])
         torch.cuda.synchronize()
         launched = 1 if L else 0
         assert (tgm.gf_matmul_unpacked.launches,
@@ -512,8 +601,8 @@ def test_cuda_unpacked_kernels_match_plain_versions(cuda_device, s):
                                              before[1] + launched)
         assert torch.equal(got, tref.gf_matmul_clmul_ref(A, P, s))
         assert torch.equal(got2, tref.gf2_matmul_ref(A, P))
-        assert not wide_out[:, :off].any() and \
-            not wide_out[:, off + L:].any()
+        for out in (wide_out, wide_out2):
+            assert not out[:, :off].any() and not out[:, off + L:].any()
 
 
 @pytest.mark.cuda
