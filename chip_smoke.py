@@ -44,9 +44,29 @@ failing on the first wrong result:
    sequence: on the bf16 weights as served within 0.25, the timed serve
    step's first token and log-prob too, and on the same weights in
    float32 within rtol = atol = 1e-3; with the same greedy token
-   wherever the fresh top-2 margin is clear of the tolerance.
+   wherever the fresh top-2 margin is clear of the tolerance;
+8. the per-arrival decoder and the decode server (run before phase 7,
+   on phase 3's payload): (a) `StreamDecoder` at K = 8, L = 500,000,000:
+   10 coded rows of P (`cuda_packed`), a duplicate and a combination,
+   10% dropped; 3 pushes, then the rest as one `ingest` block, each one
+   launch, materialized and again seeded (`ingest_seeded`, full
+   `col_mask`): the decoded packets must equal P and the ranks and
+   `decoded_at` the host's own count; (b) the tripwire: a corrupted
+   push after rank K under ``detect=True`` must set `tampered`, a byte
+   flipped in a dependent arrival of a block must name that arrival in
+   `first_inconsistent_at`; (c) `serve_trace` of the port's
+   `poisson_multitenant_trace` (24 jobs, K = 10, L = 1,237,160, 6 extra
+   packets, 5% duplicates, mixed wire formats), slots 8, g_tick 8,
+   batched and sequential: every job complete, each digest equal to its
+   true P's and an isolated `StreamDecoder`'s, both modes equal, and
+   batched dispatches = ticks = launches of `gf_matmul_packed_batched`;
+   (d) the committed fixture `tests/data/serve_trace.json` must give
+   its recorded completions.
 
-Phase 1 also holds the flash-attention kernel against its plain version
+Phase 1 also holds the packed kernel's batched instance against its
+plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
+rows; strided views; K = 4,099; nothing written outside each output)
+and the flash-attention kernel against its plain version
 in float32 and bf16: head_dim 32, 64, 128, GQA groups 1 and 4, S = 1,
 ragged S (100, 2049), the bf16 kernel's 128-key tile edges (129, 256,
 300), non-causal, strided views, views TMA cannot read in place (each
@@ -58,18 +78,20 @@ tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
 and global loads by width; the selects per word and packet row) and the
 count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
-Each of phases 2-7 drives the main path with every launch count set to
+Each of phases 2-8 drives the main path with every launch count set to
 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
 one prefill and one serve step with torch.profiler (device busy share, device time per
 kernel), times each GF kernel and its plain version at the chunk shape
 (8 x 262,144; beside the operations bound, the share of the bytes
-bound; the XOR kernel also at phase 6's leg shapes, 10 x 8 and 8 x 10)
-and the flash kernel, its plain version and PyTorch's
+bound; the XOR kernel also at phase 6's leg shapes, 10 x 8 and 8 x 10),
+the batched instance at the served tick's shape (8 x (10, 18) x
+1,237,160), one batched serve with torch.profiler, and the flash
+kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-7), error, time, plain time and bound.  The last line is
+2-8), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -126,6 +148,23 @@ SEED_BYZ = 0                     # byzantine plan, phase 5
 SEED_BYZ_ROUND = 0               # coding rows, phase 5
 SEED_MIX = 0                     # coding rows, phase 6
 SEED_HOP = 1                     # 2-hop plan, phase 6
+# phase 8: the per-arrival decoder on phase 3's payload, and the decode
+# server at the paper CNN's width.  The coding rows, drops and the
+# trace are drawn on the host, so a seed that decodes on the CPU
+# decodes on the card.
+STREAM_CODED = 10                # coded rows of phase 3's P
+STREAM_PUSHES = 3                # pushed one at a time, the rest one block
+STREAM_DROP = 0.1
+SEED_STREAM = 2                  # coding rows and drops, phase 8 (a), (b)
+WIDE_SLICE = 1 << 20             # columns of each slice a 500M launch is held on
+SERVE_JOBS = 24
+SERVE_K = 10
+SERVE_L = 1_237_160              # one CNN client's update, as phase 2
+SERVE_EXTRA = 6
+SERVE_DUP = 0.05
+SERVE_SLOTS = 8
+SERVE_TICK = 8
+SEED_SERVE = 8                   # the served trace, phase 8 (c)
 # phase 7: Qwen3-4B serving
 QWEN = "qwen3-4b"
 QWEN_BATCH = 4
@@ -193,11 +232,12 @@ def ptxas_report(libs) -> None:
 
 
 # what the SASS census prints of each GF kernel's s = 8 instance and of
-# the XOR kernel's 8-row one (LDGSTS: cp.async, global to shared)
+# the XOR kernel's 8-row one (LDGSTS: cp.async, global to shared; LDL,
+# STL: local memory, where spilled registers go)
 SASS_OPS = ("LOP3", "LOP3.select", "SHF", "IADD3", "IMAD", "ISETP",
             "LDS.128", "LDS.32", "LDG.128", "LDG.64", "LDG.32", "LDG.U8",
             "LDGSTS.128", "LDGSTS.64", "LDGSTS.32", "STG.128", "STG.64",
-            "STG.32", "STG.U8")
+            "STG.32", "STG.U8", "LDL", "STL")
 
 
 def sass_report(gf_lib: pathlib.Path, xor_lib: pathlib.Path,
@@ -227,7 +267,8 @@ def sass_report(gf_lib: pathlib.Path, xor_lib: pathlib.Path,
         if label.startswith("gf2_matmul"):
             per, unit = 8, "row"
         else:
-            per = int(args[2 if label.startswith("gf_matmul_packed") else 1])
+            per = int(args[2 if label.startswith("gf_matmul_packed")
+                           and "batched" not in label else 1])
             unit = "word"
         print(f"sass: {label}: kernel " + ", ".join(
             f"{whole[op]} {op}" for op in SASS_OPS))
@@ -350,6 +391,53 @@ def phase1(gk, gx, ref, seeds_mod) -> dict[str, int]:
           f"1,2,3,4,8 on s-bit symbols and on bytes >= 2^s; gf2 on A bytes "
           f"0..255), max_abs_err={worst}")
     return worst
+
+
+def phase1_batched(gk, ref) -> dict[str, int]:
+    """The packed kernel's batched instance == a loop of the packed plain
+    version, byte for byte; returns its max |error|.  J = 1, 3, 8
+    problems; s = 1, 4, 8; rows 16-, 8-, 4- and 1-byte aligned (the
+    batch stride too); ragged L; strided views of P and of the output;
+    K above the mask tile and 4,099; L = 0; nothing written outside
+    each problem's output view."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    # (J, n, K, L, column offset, extra columns): the row stride
+    # L + off + extra sets the rows' alignment
+    cases = [(1, 8, 8, 4096, 0, 0), (3, 10, 18, 4100, 0, 0),
+             (8, 10, 18, 4104, 0, 0), (8, 10, 18, 2051, 4, 5),
+             (3, 5, 40, 1030, 3, 1), (2, 3, 4099, 517, 0, 11),
+             (8, 10, 18, 1 << 18, 0, 0), (3, 4, 4, 0, 0, 4)]
+    worst = 0
+    for s in (1, 4, 8):
+        for J, n, K, L, off, extra in cases:
+            W = L + off + extra
+            wide = torch.randint(0, 1 << s, (J, K + 2, W), generator=g,
+                                 device=dev, dtype=torch.uint8)
+            P = wide[:, 1:1 + K, off:off + L]
+            A = torch.randint(0, 1 << s, (J, n, K), generator=g, device=dev,
+                              dtype=torch.uint8)
+            wide_out = torch.zeros((J, n + 2, W), device=dev,
+                                   dtype=torch.uint8)
+            got = gk.gf_matmul_packed_batched(
+                A, P, s=s, out=wide_out[:, 1:1 + n, off:off + L])
+            want = ref.gf_matmul_packed_batched_ref(A, P, s)
+            torch.cuda.synchronize()
+            what = f"s={s} (J,n,K,L,off,W)={(J, n, K, L, off, W)}"
+            err = int((got.int() - want.int()).abs().max()) if L else 0
+            worst = max(worst, err)
+            check(err == 0, f"gf_matmul_packed_batched {what} differs from "
+                            f"its plain version")
+            check(not wide_out[:, 0].any() and not wide_out[:, n + 1].any()
+                  and not wide_out[:, :, :off].any()
+                  and not wide_out[:, :, off + L:].any(),
+                  f"gf_matmul_packed_batched {what} wrote outside its "
+                  f"output views")
+    print(f"phase 1: gf_matmul_packed_batched == plain version (a loop of "
+          f"the packed plain version), {len(cases)} shapes x s in 1,4,8 "
+          f"(J 1/3/8, K up to 4,099, rows 16/8/4/1-byte aligned, strided "
+          f"views), max_abs_err={worst}")
+    return {"gf_matmul_packed_batched": worst}
 
 
 def phase1_flash(fa, ref, attn) -> dict[str, float]:
@@ -627,6 +715,343 @@ def phase6(wrappers, P: torch.Tensor, P1: torch.Tensor) -> None:
               f"dispatches {eng.dispatch_count}, launches {launches}, "
               f"max_memory_allocated {peak} bytes")
         del out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the per-arrival decoder, its tripwire and the decode server
+# ---------------------------------------------------------------------------
+
+def stream_rows(K: int) -> tuple[torch.Tensor, np.ndarray]:
+    """(A, kept): 10 coded rows with a duplicate and a combination of two
+    of them among them (12 rows, on the host), and the rows that survive
+    10% erasure, in arrival order."""
+    from repro_torch.core.gf import get_field
+
+    A = get_field(8).random_elements(
+        torch.Generator().manual_seed(SEED_STREAM), (STREAM_CODED, K))
+    # arrival 5 duplicates arrival 3, arrival 8 combines arrivals 1 and 2
+    A = torch.cat([A[:4], A[2:3], A[4:6], A[0:1] ^ A[1:2], A[6:]])
+    keep = np.random.default_rng(SEED_STREAM).random(len(A)) >= STREAM_DROP
+    return A, np.nonzero(keep)[0]
+
+
+def host_count(K: int, rows: torch.Tensor) -> tuple[list[int], int]:
+    """The rank trajectory and decoded_at of `rows` counted on the host:
+    a rank-only decoder, the same pushes and block."""
+    from repro_torch.engine import StreamDecoder
+
+    dec = StreamDecoder(K=K)
+    ranks = [dec.push(rows[i]) for i in range(STREAM_PUSHES)]
+    ranks += dec.ingest(rows[STREAM_PUSHES:]).tolist()
+    return ranks, dec.decoded_at
+
+
+def held_wide_launches(ref, seen: list):
+    """Point the stream decoder's packed launches at a wrapper that holds
+    each launch's output against the packed plain version, on slices of
+    WIDE_SLICE columns at the start, the middle and the end of its rows,
+    inside the call (the decoder swaps and reuses its buffers).  Appends
+    (rows in, rows out, the farthest byte offset the kernel reads from
+    its P pointer, max |error|) per launch; returns the undo."""
+    import repro_torch.engine.stream as stream
+
+    launch = stream.gf_matmul_packed
+
+    def checked(A, P, *, s, out):
+        got = launch(A, P, s=s, out=out)
+        L = P.shape[1]
+        err = 0
+        for c0 in (0, (L - WIDE_SLICE) // 2, L - WIDE_SLICE):
+            cols = slice(max(c0, 0), min(max(c0, 0) + WIDE_SLICE, L))
+            want = ref.gf_matmul_packed_ref(A, P[:, cols], s)
+            err = max(err, int((got[:, cols].int() - want.int()).abs().max()))
+        far = (P.shape[0] - 1) * P.stride(0) + L - 1
+        seen.append((P.shape[0], got.shape[0], far, err))
+        return got
+
+    stream.gf_matmul_packed = checked
+    return lambda: setattr(stream, "gf_matmul_packed", launch)
+
+
+def run_stream(gk, K: int, L: int, push_rows, block_rows, C, ingest,
+               detect: bool = False) -> tuple[object, list[int], dict]:
+    """Push STREAM_PUSHES arrivals, then ingest the rest as one block;
+    returns the decoder, its rank trajectory and the synchronized
+    times and launches of each step."""
+    from repro_torch.engine import StreamDecoder
+
+    dec = StreamDecoder(K=K, L=L, device="cuda", detect=detect)
+    ranks, steps = [], {}
+    for i in range(STREAM_PUSHES):
+        before = gk.gf_matmul_packed.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranks.append(dec.push(push_rows[i], C[i]))
+        torch.cuda.synchronize()
+        steps[f"push {i}"] = (time.perf_counter() - t0,
+                              gk.gf_matmul_packed.launches - before)
+    before = gk.gf_matmul_packed.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks += ingest(dec, block_rows, C[STREAM_PUSHES:]).tolist()
+    torch.cuda.synchronize()
+    steps["ingest"] = (time.perf_counter() - t0,
+                       gk.gf_matmul_packed.launches - before)
+    return dec, ranks, steps
+
+
+def phase8_stream(gk, ref, P: torch.Tensor) -> int:
+    """(a) StreamDecoder on phase 3's payload, materialized then seeded;
+    (b) the tripwire in a block and under detect=True, each launch of (b)
+    held against the packed plain version on column slices.  Returns
+    the max |error| of those launches."""
+    from repro_torch.core import seeds as seedlib
+    from repro_torch.core.rlnc import EncodedBatch
+    from repro_torch.engine import CodingEngine, EngineConfig
+
+    K, L = P.shape
+    eng = CodingEngine(EngineConfig(s=8, kernel="cuda_packed"),
+                       device="cuda")
+    A, kept = stream_rows(K)
+    torch.cuda.reset_peak_memory_stats()
+    C = eng.encode(P, A).C[torch.as_tensor(kept, device="cuda")]
+    rows = A[kept]
+    want_ranks, want_at = host_count(K, rows)
+    dec, ranks, steps = run_stream(
+        gk, K, L, rows, rows[STREAM_PUSHES:], C,
+        lambda d, r, c: d.ingest(r, c), detect=True)
+    ok, P_hat = dec.decode()
+    check(ok and torch.equal(P_hat, P), "phase 8 (a): decoded packets != P")
+    check(ranks == want_ranks and dec.decoded_at == want_at,
+          f"phase 8 (a): ranks {ranks} / decoded_at {dec.decoded_at} != "
+          f"the host's {want_ranks} / {want_at}")
+    check(not dec.tampered, "phase 8 (a): an honest stream was flagged")
+    g = len(rows) - STREAM_PUSHES
+    d = g - (want_ranks[-1] - want_ranks[STREAM_PUSHES - 1])
+    for name, (sec, launched) in steps.items():
+        n_in, n_out = (K + 1, K) if name.startswith("push") else (K + g,
+                                                                   K + d)
+        b_ms, b_by, n_bytes, ops = bound_ms(n_out, n_in, L, 8, "ladder")
+        print(f"phase 8 (a): {name} K={K} L={L}: {launched} launch(es), "
+              f"{sec * 1e3:.6f} ms synchronized, bound {b_ms:.6f} ms by "
+              f"{b_by} ({n_out} x {n_in} rows: {n_bytes} bytes, {ops} int32 "
+              f"ops), {100 * b_ms / (sec * 1e3):.2f}% of it")
+        check(launched == 1, f"phase 8 (a): {name} launched {launched} "
+                             f"times, not once")
+    print(f"phase 8 (a): StreamDecoder materialized, {len(A)} coded rows "
+          f"(one duplicate, one combination), {len(rows)} arrive: ranks "
+          f"{ranks} == host count, decoded_at {dec.decoded_at}, "
+          f"P_hat == P")
+    # (b) the tripwire: a corrupted arrival after rank K, detect=True
+    bad = C[0].clone()
+    bad[L // 2] ^= 0x5A
+    before = gk.gf_matmul_packed.launches
+    held = []
+    undo = held_wide_launches(ref, held)
+    dec.push(rows[0], bad)
+    check(dec.tampered and dec.first_inconsistent_at == dec.arrivals,
+          "phase 8 (b): a corrupted push after rank K was not flagged")
+    check(gk.gf_matmul_packed.launches == before + 1 and
+          torch.equal(dec.decode()[1], P),
+          "phase 8 (b): the detect push did not launch once or moved Y")
+    del dec, bad, P_hat
+    # (b) the tripwire inside a block: flip a byte of a dependent arrival
+    block = rows[STREAM_PUSHES:]
+    dep = [i for i in range(g) if want_ranks[STREAM_PUSHES + i]
+           == want_ranks[STREAM_PUSHES + i - 1]]
+    check(len(dep) > 0, "phase 8 (b): the block holds no dependent arrival")
+    flip = STREAM_PUSHES + dep[0]
+    C[flip, L // 3] ^= 0x01
+    try:
+        dec, _, _ = run_stream(gk, K, L, rows, block, C,
+                               lambda d, r, c: d.ingest(r, c))
+    finally:
+        undo()
+    C[flip, L // 3] ^= 0x01
+    check(dec.first_inconsistent_at == flip + 1 and dec.inconsistent == 1,
+          f"phase 8 (b): first_inconsistent_at {dec.first_inconsistent_at}"
+          f" != the flipped arrival {flip + 1}")
+    check(torch.equal(dec.decode()[1], P),
+          "phase 8 (b): the flipped dependent arrival changed P_hat")
+    print(f"phase 8 (b): tripwire: a corrupted push after rank K sets "
+          f"tampered (one launch of its tripwire row, P_hat kept); a byte "
+          f"flipped in dependent arrival {flip + 1} of a block: "
+          f"first_inconsistent_at {dec.first_inconsistent_at}, "
+          f"inconsistent {dec.inconsistent}")
+    wide_err = max(e for *_, e in held)
+    far = max(f for _, _, f, _ in held)
+    check(wide_err == 0, f"phase 8 (b): a packed launch at L={L} differs "
+                         f"from its plain version: {held}")
+    check(far >= 1 << 32, f"phase 8 (b): the held launches read no byte "
+                          f"past 2^32 of their P ({far})")
+    print(f"phase 8 (b): {len(held)} packed launches at L={L} "
+          f"((rows in, rows out) {[h[:2] for h in held]}) == the packed "
+          f"plain version on {WIDE_SLICE} columns at the start, middle and "
+          f"end of their rows (farthest byte read {far} from P, past "
+          f"2^32), max_abs_err={wide_err}")
+    del dec
+    # the yardstick: the engine's batch decode of the same arrivals
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok, P_batch = eng.decode(EncodedBatch(A=rows, C=C))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    check(ok and torch.equal(P_batch, P), "phase 8 (a): batch decode != P")
+    del P_batch, C
+    # (a) again through the seeded wire format, full col_mask
+    seeds = seedlib.draw_seeds(torch.Generator().manual_seed(SEED_STREAM),
+                               STREAM_CODED)
+    seeds = torch.cat([seeds, seeds[2:3]])                  # a duplicate
+    keep = np.random.default_rng(SEED_STREAM + 1).random(len(seeds)) \
+        >= STREAM_DROP
+    seeds = seeds[torch.as_tensor(np.nonzero(keep)[0])]
+    C = eng.encode_seeded(P, seeds).C
+    want_ranks, want_at = host_count(K, seedlib.expand_rows(seeds, K, 8))
+    mask = np.ones((K,), bool)
+    dec, ranks, steps = run_stream(
+        gk, K, L, [int(x) for x in seeds], seeds[STREAM_PUSHES:], C,
+        lambda d, r, c: d.ingest_seeded(r, c, col_mask=mask))
+    ok, P_hat = dec.decode()
+    check(ok and torch.equal(P_hat, P),
+          "phase 8 (a): seeded decoded packets != P")
+    check(ranks == want_ranks and dec.decoded_at == want_at,
+          f"phase 8 (a): seeded ranks {ranks} != the host's {want_ranks}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 8 (a): StreamDecoder seeded + col_mask, {len(seeds)} "
+          f"arrivals: ranks {ranks} == host count, decoded_at "
+          f"{dec.decoded_at}, P_hat == P; push "
+          f"{steps['push 0'][0] * 1e3:.6f} ms, ingest "
+          f"{steps['ingest'][0] * 1e3:.6f} ms synchronized; the engine's "
+          f"batch decode of the materialized arrivals {batch_s * 1e3:.6f} "
+          f"ms; max_memory_allocated {peak} bytes")
+    del dec, P_hat, C
+    return wide_err
+
+
+def phase8_serve(gk, fixture: pathlib.Path) -> dict:
+    """(c) the decode server at the CNN's width, batched and sequential;
+    (d) the committed fixture.  Returns the measurements."""
+    from repro_torch.core.seeds import expand_rows
+    from repro_torch.engine import StreamDecoder
+    from repro_torch.serve import (ServeTrace, job_packets, payload_digest,
+                                   poisson_multitenant_trace, serve_trace)
+
+    t0 = time.perf_counter()
+    trace = poisson_multitenant_trace(
+        SERVE_JOBS, K=SERVE_K, L=SERVE_L, s=8, extra_packets=SERVE_EXTRA,
+        duplicate_rate=SERVE_DUP, seeded="mixed", seed=SEED_SERVE,
+        device="cuda")
+    gen_s = time.perf_counter() - t0
+    reports = {}
+    for batched in (True, False, True):        # in turns; the first warms
+        before = gk.gf_matmul_packed_batched.launches
+        rep = serve_trace(trace, slots=SERVE_SLOTS, g_tick=SERVE_TICK,
+                          batched=batched, device="cuda")
+        launched = gk.gf_matmul_packed_batched.launches - before
+        if batched:
+            check(rep.dispatches == rep.ticks == launched,
+                  f"phase 8 (c): dispatches {rep.dispatches}, ticks "
+                  f"{rep.ticks}, batched launches {launched} differ")
+        reports.setdefault(batched, []).append(rep)
+    sig = {b: [(c.job, c.arrivals, c.payload_sha) for c in r[-1].completions]
+           for b, r in reports.items()}
+    check(sig[True] == sig[False],
+          "phase 8 (c): batched and sequential completions differ")
+    rep = reports[True][-1]
+    check(rep.completed == SERVE_JOBS,
+          f"phase 8 (c): {rep.completed} of {SERVE_JOBS} jobs complete")
+    for c in rep.completions:
+        meta = trace.jobs[c.job]
+        idx = trace.packet_indices(c.job)
+        dec = StreamDecoder(K=meta.K, L=meta.L, device="cuda")
+        rows = (trace.row_seeds[idx] if meta.seeded else
+                expand_rows(trace.row_seeds[idx], meta.K, 8))
+        dec.ingest(rows, trace.payloads[idx, :meta.L])
+        truth = payload_digest(job_packets(SEED_SERVE, c.job, meta.K,
+                                           meta.L))
+        check(c.payload_sha == truth == payload_digest(dec.decode()[1]) and
+              c.arrivals == dec.decoded_at,
+              f"phase 8 (c): job {c.job} differs from its true P or from "
+              f"an isolated StreamDecoder")
+    seq = reports[False][-1]
+    p50, p99 = rep.latency_percentiles()
+    print(f"phase 8 (c): serve_trace {SERVE_JOBS} jobs K={SERVE_K} "
+          f"L={SERVE_L} extra {SERVE_EXTRA} dup {SERVE_DUP} mixed formats, "
+          f"slots {SERVE_SLOTS} g_tick {SERVE_TICK} (trace generated in "
+          f"{gen_s:.3f} s): every job complete, == its true P and an "
+          f"isolated StreamDecoder, batched == sequential; batched: "
+          f"{rep.packets_ingested} packets, {rep.ticks} ticks = dispatches "
+          f"= launches, wall {rep.wall_s:.6f} s ({reports[True][0].wall_s:.6f}"
+          f" s cold), {rep.packets_per_s:.1f} packets/s, p50 "
+          f"{p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms; sequential: "
+          f"{seq.dispatches} dispatches, wall {seq.wall_s:.6f} s, "
+          f"{seq.packets_per_s:.1f} packets/s; batched / sequential wall "
+          f"{rep.wall_s / seq.wall_s:.4f}")
+    out = []
+    device_profile("serve batched", lambda: out.append(serve_trace(
+        trace, slots=SERVE_SLOTS, g_tick=SERVE_TICK, batched=True,
+        device="cuda")))
+    check(out[0].completed == SERVE_JOBS, "phase 8 (c): traced serve")
+    del trace, out
+    # (d) the committed fixture: the reference's own completions
+    fix = ServeTrace.load(fixture)
+    expected = fix.extra["expected"]
+    for g_tick in (1, 4, 8):
+        r = serve_trace(fix, slots=4, g_tick=g_tick, device="cuda")
+        got = {str(c.job): {"arrivals": c.arrivals,
+                            "payload_sha": c.payload_sha}
+               for c in r.completions}
+        check(got == expected, f"phase 8 (d): fixture g_tick={g_tick} != "
+                               f"its expected completions")
+    print(f"phase 8 (d): {fixture.name}: {len(expected)} jobs, arrivals and "
+          f"payload_sha == the fixture's expected completions at g_tick 1, "
+          f"4, 8")
+    return {"packets_per_s": rep.packets_per_s, "wall_s": rep.wall_s}
+
+
+def phase8(gk, ref, P: torch.Tensor) -> int:
+    """Phase 8; returns the max |error| of the 500M launches held."""
+    wide_err = phase8_stream(gk, ref, P)
+    phase8_serve(gk, ROOT / "tests" / "data" / "serve_trace.json")
+    return wide_err
+
+
+def time_batched(gk, ref) -> dict:
+    """The batched instance at the served tick's shape: 8 slots x (10,
+    18) over the CNN's 1,237,160 symbols, held byte for byte against its
+    plain version there, then timed in turns plain, kernel, kernel,
+    plain; bound: 8 times the packed ladder's least work."""
+    J, n, K, L = SERVE_SLOTS, SERVE_K, SERVE_K + SERVE_TICK, SERVE_L
+    g = torch.Generator(device="cuda").manual_seed(4)
+    A = torch.randint(0, 256, (J, n, K), generator=g, device="cuda",
+                      dtype=torch.uint8)
+    Ps = [torch.randint(0, 256, (J, K, L), generator=g, device="cuda",
+                        dtype=torch.uint8) for _ in range(2)]
+    got = gk.gf_matmul_packed_batched(A, Ps[0], s=8)
+    want = ref.gf_matmul_packed_batched_ref(A, Ps[0], 8)
+    err = int((got.int() - want.int()).abs().max())
+    check(err == 0, f"gf_matmul_packed_batched at the served tick's shape "
+                    f"{(J, n, K, L)} differs from its plain version")
+    del got, want
+    plain_a = time_launches(lambda X: ref.gf_matmul_packed_batched_ref(
+        A, X, 8), Ps, 2)
+    ms = time_launches(lambda X: gk.gf_matmul_packed_batched(A, X, s=8), Ps,
+                       200)
+    ms_b = time_launches(lambda X: gk.gf_matmul_packed_batched(A, X, s=8),
+                         Ps, 200)
+    plain_b = time_launches(lambda X: ref.gf_matmul_packed_batched_ref(
+        A, X, 8), Ps, 2)
+    b_ms, b_by, n_bytes, ops = bound_ms(n, K, L, 8, "ladder")
+    b_ms, n_bytes, ops = J * b_ms, J * n_bytes, J * ops
+    kernel_ms = min(ms, ms_b)
+    print(f"timing gf_matmul_packed_batched at (J,n,K,L)=({J},{n},{K},{L}) "
+          f"s=8: kernel {ms:.6f} / {ms_b:.6f} ms, plain {plain_a:.6f} / "
+          f"{plain_b:.6f} ms, bound {b_ms:.6f} ms by {b_by} ({n_bytes} "
+          f"bytes, {ops} int32 ops), {ops / kernel_ms / 1e9:.3f} T int32 "
+          f"op/s, {100 * b_ms / kernel_ms:.2f}% of the {b_by} bound; "
+          f"== its plain version there, max_abs_err={err}")
+    return {"ms": kernel_ms, "plain_ms": min(plain_a, plain_b),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -1136,6 +1561,7 @@ def main() -> None:
 
     wrappers = gk.WRAPPERS + gx.WRAPPERS + fa.WRAPPERS
     errors = phase1(gk, gx, ref, seeds_mod)
+    errors.update(phase1_batched(gk, ref))
     errors.update(phase1_flash(fa, ref, attn))
     cnn = cnn_clients()
     packed = ("gf_matmul_packed", "gf_matmul_packed_seeded")
@@ -1156,6 +1582,16 @@ def main() -> None:
     trace_rounds(P, P1)
     del P1
     times = time_kernels(gk, gx, ref, P)
+    counts8, wide_err = main_path(
+        "phase 8", wrappers,
+        ("gf_matmul_packed", "gf_matmul_packed_seeded",
+         "gf_matmul_packed_batched"), lambda: phase8(gk, ref, P))
+    runs.append((counts8, None))
+    errors["gf_matmul_packed"] = max(errors["gf_matmul_packed"], wide_err)
+    times["gf_matmul_packed_batched"] = time_batched(gk, ref)
+    errors["gf_matmul_packed_batched"] = max(
+        errors["gf_matmul_packed_batched"],
+        times["gf_matmul_packed_batched"]["max_abs_err"])
     del P                 # 4 GB of payload: free it before phase 7
     torch.cuda.empty_cache()
 
@@ -1168,7 +1604,7 @@ def main() -> None:
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-7)")
+          + " (phases 2-8)")
     trace_serving(cfg, params, prompt)
     del params, prompt
     torch.cuda.empty_cache()
@@ -1176,6 +1612,7 @@ def main() -> None:
 
     gm_py = "src/repro/kernels/gf_matmul.py"
     replaces = {"gf_matmul_packed": f"{gm_py}:204",
+                "gf_matmul_packed_batched": f"{gm_py}:204",
                 "gf_matmul_packed_seeded": f"{gm_py}:286",
                 "gf_matmul_unpacked": f"{gm_py}:93",
                 "gf2_matmul": "src/repro/kernels/gf2_xor.py:33",

@@ -178,3 +178,28 @@ def packets_to_pytrees(P_hat: torch.Tensor, spec: PacketSpec):
         leaves.append(chunk.view(dtype).reshape(K, *shape))
         off += nbytes
     return tree_unflatten(spec.treedef, leaves)
+
+
+# ---------------------------------------------------------------------------
+# wire sizes: a materialized K-symbol row or a 4-byte seed, then the payload
+# ---------------------------------------------------------------------------
+
+SEED_WIRE_BYTES = 4
+
+
+def coding_row_wire_bytes(K: int, s: int) -> int:
+    """Bytes a materialized K-symbol GF(2^s) coding row occupies."""
+    return -(-K * s // 8)
+
+
+def packet_wire_bytes(K: int, payload_symbols: int, s: int,
+                      *, seeded: bool) -> int:
+    """Total wire bytes of one encoded tuple (header + payload).
+
+    >>> packet_wire_bytes(128, 4096, 8, seeded=False)   # K + L
+    4224
+    >>> packet_wire_bytes(128, 4096, 8, seeded=True)    # 4 + L
+    4100
+    """
+    header = SEED_WIRE_BYTES if seeded else coding_row_wire_bytes(K, s)
+    return header + -(-payload_symbols * s // 8)

@@ -27,6 +27,13 @@ that path on one device:
   cross-check, and `multi_edge_round` the whole hierarchical topology
   (paper §III) as one fused dispatch in the global coding-vector
   space.  Channels without a plan run stage by stage.
+* **observability** — `engine.dispatches` counts the L-sized kernel
+  launches in the engine's metrics registry, and with a tracer enabled
+  (`repro_torch.obs`) the engine emits the reference's spans
+  (``engine.round``, ``engine.select``, ``engine.invert``, one per
+  chunk and leg, ...), each fenced so it measures device time.  Under
+  the default null tracer nothing is fenced and launches stay
+  asynchronous.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import packets as pkt
 from repro_torch.core import seeds as seedlib
 from repro_torch.core.channel import ChannelReport, RowGather, RowMix, RowTamper
@@ -117,8 +125,15 @@ class CodingEngine:
                 seeded_kernel_name(self.kernel_name))
             self._mat_kernel = self._kernel
         self.field = get_field(config.s)       # host-side row-space work
-        #: L-sized kernel dispatches issued so far (monotonic)
-        self.dispatch_count = 0
+        # per-engine metrics; engine.dispatches counts L-sized kernel
+        # dispatches (monotonic; benchmarks diff it around a round)
+        self.metrics = obs.MetricsRegistry()
+        self._dispatches = self.metrics.counter("engine.dispatches")
+
+    @property
+    def dispatch_count(self) -> int:
+        """L-sized kernel dispatches issued so far (monotonic)."""
+        return self._dispatches.value
 
     # -- packetization ----------------------------------------------------
 
@@ -173,12 +188,15 @@ class CodingEngine:
             return max(L, 1), 1
         return cl, -(-L // cl)
 
-    def matmul(self, A: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    def matmul(self, A: torch.Tensor, P: torch.Tensor, *,
+               stage: str = "encode") -> torch.Tensor:
         """C = A·P, chunk-streamed through the configured kernel.  A
-        (n,) seed vector as `A` runs the seeded kernel."""
-        return self._stream(A, P, enc_seeded=_is_seed_rows(A))
+        (n,) seed vector as `A` runs the seeded kernel.  `stage` labels
+        the per-chunk trace spans (``engine.<stage>``)."""
+        return self._stream(A, P, enc_seeded=_is_seed_rows(A), stage=stage)
 
-    def _stream(self, A, P, A_post=None, *, enc_seeded: bool = False):
+    def _stream(self, A, P, A_post=None, *, enc_seeded: bool = False,
+                stage: str = "encode", post_stage: str = "decode"):
         """Run the kernel chunk by chunk over column views of P; the
         last launch of each chunk writes into that chunk's columns of
         the output.
@@ -189,7 +207,8 @@ class CodingEngine:
         the host queues chunk i+1 while the card runs chunk i.  With
         ``enc_seeded`` the first operand is the (n,) seed vector and the
         encode leg runs the seeded kernel; the A_post leg is always the
-        materialized kernel.
+        materialized kernel.  With a tracer enabled each launch is a span
+        (``engine.<stage>``, ``engine.<post_stage>``) fenced on its output.
         """
         if P.device.type != self.device.type:
             raise ValueError(f"P is on {P.device}, the engine on "
@@ -206,22 +225,32 @@ class CodingEngine:
             return torch.zeros((n_out, 0), dtype=torch.uint8,
                                device=P.device)
 
-        def mm(kernel, M, X, out=None):
-            self.dispatch_count += 1
-            return kernel(M, X, s=s, out=out)
+        tr = obs.get_tracer()
 
-        def leg(X, out=None):
+        def mm(kernel, M, X, label, chunk, out=None):
+            self._dispatches.inc()
+            if not tr.enabled:
+                return kernel(M, X, s=s, out=out)
+            # traced: fence the chunk so the span measures device time
+            # (the untraced path keeps the launches asynchronous)
+            with tr.span(f"engine.{label}", cat="engine",
+                         chunk=chunk) as sp:
+                return sp.fence(kernel(M, X, s=s, out=out))
+
+        def leg(X, chunk, out=None):
             if A_post is None:
-                return mm(enc_kernel, A, X, out)
-            return mm(post_kernel, A_post, mm(enc_kernel, A, X), out)
+                return mm(enc_kernel, A, X, stage, chunk, out)
+            return mm(post_kernel, A_post,
+                      mm(enc_kernel, A, X, stage, chunk), post_stage, chunk,
+                      out)
 
         cl, nc = self._chunks(L)
         if nc == 1:
-            return leg(P)
+            return leg(P, 0)
         out = torch.empty((n_out, L), dtype=torch.uint8, device=P.device)
         for c in range(nc):
             lo, hi = c * cl, min(L, (c + 1) * cl)
-            leg(P[:, lo:hi], out[:, lo:hi])
+            leg(P[:, lo:hi], c, out[:, lo:hi])
         return out
 
     # -- pipeline stages --------------------------------------------------
@@ -272,14 +301,17 @@ class CodingEngine:
         R = torch.as_tensor(R, dtype=torch.uint8).cpu()
         if isinstance(batch, SeededBatch):
             batch = batch.expand(self.config.s)
-        A = self.matmul(R, batch.A.to(self.device)).cpu()
-        return EncodedBatch(A=A, C=self.matmul(R, batch.C))
+        A = self.matmul(R, batch.A.to(self.device), stage="recode").cpu()
+        return EncodedBatch(A=A, C=self.matmul(R, batch.C, stage="recode"))
 
     def select(self, batch) -> tuple[bool, EncodedBatch]:
         """Pick K independent tuples out of n >= K (row space on host)."""
         if isinstance(batch, SeededBatch):
             batch = batch.expand(self.config.s)
-        ok, idx, _ = incremental_select(batch.A.cpu(), self.config.s)
+        with obs.get_tracer().span("engine.select", cat="engine",
+                                   n=int(batch.n)) as sp:
+            ok, idx, _ = incremental_select(batch.A.cpu(), self.config.s)
+            sp.fence(idx)
         return ok, EncodedBatch(A=batch.A[idx.to(batch.A.device)],
                                 C=batch.C[idx.to(batch.C.device)])
 
@@ -293,10 +325,13 @@ class CodingEngine:
         ok = True
         if batch.n > K:
             ok, batch = self.select(batch)
-        ok_inv, A_inv = invert(self.field, batch.A.cpu())
+        with obs.get_tracer().span("engine.invert", cat="engine",
+                                   K=K) as sp:
+            ok_inv, A_inv = invert(self.field, batch.A.cpu())
+            sp.fence(A_inv)
         if not (ok and ok_inv):
             return False, None
-        return True, self.matmul(A_inv, batch.C)
+        return True, self.matmul(A_inv, batch.C, stage="decode")
 
     def decode_verified(self, batch) -> tuple[bool, Optional[torch.Tensor],
                                               Optional[bool]]:
@@ -332,11 +367,12 @@ class CodingEngine:
         ok_inv, A_inv = invert(self.field, A[idx])
         if not (ok and ok_inv):
             return False, None, None
-        P_hat = self.matmul(A_inv, batch.C[idx.to(batch.C.device)])
+        P_hat = self.matmul(A_inv, batch.C[idx.to(batch.C.device)],
+                            stage="decode")
         red = torch.as_tensor(np.setdiff1d(np.arange(n), idx.numpy()))
         if red.numel() == 0:
             return True, P_hat, None
-        pred = self.matmul(A[red], P_hat).cpu().numpy()
+        pred = self.matmul(A[red], P_hat, stage="verify").cpu().numpy()
         got = batch.C[red.to(batch.C.device)].cpu().numpy()
         verified = all(hashlib.sha256(pred[i].tobytes()).digest()
                        == hashlib.sha256(got[i].tobytes()).digest()
@@ -356,15 +392,20 @@ class CodingEngine:
         n, K = A.shape
         if n < K:
             return EngineRound(False, None, None)
+        tr = obs.get_tracer()
         ok = True
         if n > K:
-            ok, idx, _ = incremental_select(A, self.config.s)
+            with tr.span("engine.select", cat="engine", n=n) as sp:
+                ok, idx, _ = incremental_select(A, self.config.s)
+                sp.fence(idx)
             A_sel = A[idx]
             enc = seeds[idx] if seeds is not None else A_sel
         else:
             A_sel = A
             enc = seeds if seeds is not None else A
-        ok_inv, A_inv = invert(self.field, A_sel)
+        with tr.span("engine.invert", cat="engine", K=K) as sp:
+            ok_inv, A_inv = invert(self.field, A_sel)
+            sp.fence(A_inv)
         if not (ok and ok_inv):
             return EngineRound(False, None, None)
         # encode only the selected rows: the ideal channel delivers
@@ -407,18 +448,25 @@ class CodingEngine:
         n, K = A.shape
         L = P.shape[1]
         s = self.config.s
+        tr = obs.get_tracer()
         idx_np = np.asarray(plan.idx, np.int64)
-        A_rx = A
-        if plan.m and plan.row_seeds is not None:
-            idx_t = torch.as_tensor(idx_np)
-            A_rx = A.clone()
-            A_rx[idx_t] = A[idx_t] ^ self._expand_err(
-                plan.row_seeds, np.arange(plan.m), K)
-        ok, sel, _ = incremental_select(A_rx, s)
+        with tr.span("engine.transform", cat="engine", n=n) as sp:
+            A_rx = A
+            if plan.m and plan.row_seeds is not None:
+                idx_t = torch.as_tensor(idx_np)
+                A_rx = A.clone()
+                A_rx[idx_t] = A[idx_t] ^ self._expand_err(
+                    plan.row_seeds, np.arange(plan.m), K)
+            sp.fence(A_rx)
+        with tr.span("engine.select", cat="engine", n=n) as sp:
+            ok, sel, _ = incremental_select(A_rx, s)
+            sp.fence(sel)
         report = ChannelReport(n, n, ok)
         if not ok:
             return EngineRound(False, None, report)
-        _, A_inv = invert(self.field, A_rx[sel])
+        with tr.span("engine.invert", cat="engine", K=K) as sp:
+            _, A_inv = invert(self.field, A_rx[sel])
+            sp.fence(A_inv)
         sel_np = sel.numpy()
         enc_rows = seeds if seeds is not None else A
         P_hat = self._stream(enc_rows[sel], P, A_post=A_inv,
@@ -443,14 +491,16 @@ class CodingEngine:
             if red.size:
                 red_t = torch.as_tensor(red)
                 C_red = self._stream(enc_rows[red_t], P,
-                                     enc_seeded=seeds is not None)
+                                     enc_seeded=seeds is not None,
+                                     stage="verify")
                 if plan.payload_seeds is not None and L:
                     where, which = err_at(red)
                     if where.size:
                         w = torch.as_tensor(where, device=C_red.device)
                         C_red[w] ^= self._expand_err(plan.payload_seeds,
                                                      which, L, P.device)
-                resid = self._stream(A_rx[red_t], P_hat) ^ C_red
+                resid = self._stream(A_rx[red_t], P_hat,
+                                     stage="verify") ^ C_red
                 verified = not bool(resid.any())
         return EngineRound(True, P_hat, report, verified)
 
@@ -472,27 +522,35 @@ class CodingEngine:
         A = A.cpu()
         n, K = A.shape
         s = self.config.s
+        tr = obs.get_tracer()
         plan = channel.plan_transform(n, s)
         if isinstance(plan, RowTamper):
             return self._fused_tamper_round(P, A, plan, seeds, verify)
-        if isinstance(plan, RowGather):
-            delivered = int(len(plan.idx))
-            if delivered < K:
-                return EngineRound(False, None,
-                                   ChannelReport(n, delivered, False))
-            idx = torch.as_tensor(plan.idx, dtype=torch.int64)
-            A_rx = A[idx]
-        elif isinstance(plan, RowMix):
-            R = plan.R.cpu()
-            delivered = int(R.shape[0])
-            A_rx = self.field.matmul(R, A)
-        else:
-            raise TypeError(f"unsupported channel plan {type(plan).__name__}")
-        ok, sel, _ = incremental_select(A_rx, s)
+        with tr.span("engine.transform", cat="engine", n=n) as sp:
+            if isinstance(plan, RowGather):
+                delivered = int(len(plan.idx))
+                if delivered < K:
+                    return EngineRound(False, None,
+                                       ChannelReport(n, delivered, False))
+                idx = torch.as_tensor(plan.idx, dtype=torch.int64)
+                A_rx = A[idx]
+            elif isinstance(plan, RowMix):
+                R = plan.R.cpu()
+                delivered = int(R.shape[0])
+                A_rx = self.field.matmul(R, A)
+            else:
+                raise TypeError(
+                    f"unsupported channel plan {type(plan).__name__}")
+            sp.fence(A_rx)
+        with tr.span("engine.select", cat="engine", n=delivered) as sp:
+            ok, sel, _ = incremental_select(A_rx, s)
+            sp.fence(sel)
         report = ChannelReport(n, delivered, ok)
         if not ok:
             return EngineRound(False, None, report)
-        _, A_inv = invert(self.field, A_rx[sel])      # sel independent
+        with tr.span("engine.invert", cat="engine", K=K) as sp:
+            _, A_inv = invert(self.field, A_rx[sel])  # sel independent
+            sp.fence(A_inv)
         if isinstance(plan, RowGather):
             rows = idx[sel]
             A_enc = seeds[rows] if seeds is not None else A[rows]
@@ -558,14 +616,19 @@ class CodingEngine:
         >>> out.ok and torch.equal(out.packets, P)
         True
         """
-        K = P.shape[0]
+        K, L = P.shape
         n = K + self.config.extra_tuples
-        if self.seeded:
-            seeds = self.coding_seeds(generator, n)
-            return self._run_round(P, self.expand_seeds(seeds, K), channel,
-                                   seeds=seeds, verify=verify)
-        return self._run_round(P, self.coding_matrix(generator, n, K),
-                               channel, verify=verify)
+        with obs.get_tracer().span("engine.round", cat="engine",
+                                   K=K, L=L, n=n) as sp:
+            if self.seeded:
+                seeds = self.coding_seeds(generator, n)
+                out = self._run_round(P, self.expand_seeds(seeds, K),
+                                      channel, seeds=seeds, verify=verify)
+            else:
+                out = self._run_round(P, self.coding_matrix(generator, n, K),
+                                      channel, verify=verify)
+            sp.fence(out.packets)
+        return out
 
     # -- the fused hierarchical round (paper §III) ------------------------
 
@@ -615,10 +678,15 @@ class CodingEngine:
         >>> out.ok and torch.equal(out.packets, P)
         True
         """
-        K = P.shape[0]
+        K, L = P.shape
         n_out = [len(ids) + spare_per_edge for ids in edges]
-        A = self.multi_edge_coding_matrix(generator, edges, K, n_out)
-        return self._run_round(P, A, wan_channel, verify=verify)
+        with obs.get_tracer().span("engine.multi_edge_round",
+                                   cat="engine", K=K, L=L,
+                                   edges=len(edges)) as sp:
+            A = self.multi_edge_coding_matrix(generator, edges, K, n_out)
+            out = self._run_round(P, A, wan_channel, verify=verify)
+            sp.fence(out.packets)
+        return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,37 +15,55 @@ import torch
 from repro_torch.core.gf import GF, get_field
 
 
+def reduce_row(field: GF, B: torch.Tensor, Y: torch.Tensor,
+               filled: torch.Tensor, a: torch.Tensor, c: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reduce the candidate row (a, c) against the RREF basis [B | Y] in
+    one GF mat-vec (B is RREF, so subtracting a[p]·[B | Y][p] for every
+    filled pivot p zeroes all filled pivot columns at once).  Returns
+    the residual ``(red_a, red_c)``; ``red_a`` is zero iff the row is
+    dependent on the basis."""
+    coeffs = torch.where(filled, a, torch.zeros_like(a))
+    red_a = a ^ field.matmul(coeffs[None, :], B)[0]
+    red_c = c ^ field.matmul(coeffs[None, :], Y)[0]
+    return red_a, red_c
+
+
+def insert_row(field: GF, B: torch.Tensor, Y: torch.Tensor,
+               filled: torch.Tensor, red_a: torch.Tensor, red_c: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Insert a nonzero residual (`reduce_row`): normalize it by its
+    first nonzero symbol, clear that pivot column from the other rows
+    and store it at the pivot.  The same row operations hit Y, keeping
+    B[p]·P = Y[p].  Returns new ``(B, Y, filled)``."""
+    piv = int(torch.nonzero(red_a != 0)[0, 0])        # first nonzero column
+    inv = field.inv(red_a[piv])
+    new_a = field.mul(red_a, inv)
+    new_c = field.mul(red_c, inv)
+    fac = B[:, piv]
+    B = B ^ field.mul(fac[:, None], new_a[None, :])
+    Y = Y ^ field.mul(fac[:, None], new_c[None, :])
+    B[piv] = new_a
+    Y[piv] = new_c
+    filled = filled.clone()
+    filled[piv] = True
+    return B, Y, filled
+
+
 def reduce_insert(field: GF, B: torch.Tensor, Y: torch.Tensor,
                   filled: torch.Tensor, a: torch.Tensor, c: torch.Tensor):
     """One candidate row (a, c) against the RREF basis [B | Y].
 
-    Reduce `a` in one GF mat-vec (B is RREF, so subtracting a[p]·B[p]
-    for every filled pivot p zeroes all filled pivot columns at once);
-    when the residual is nonzero, normalize it by its first nonzero
-    symbol and insert it at that pivot, clearing the pivot column from
-    the other rows.  The same row operations hit Y, keeping
-    B[p]·P = Y[p].  Returns ``(B, Y, filled, was_independent,
-    inconsistent)``; ``inconsistent`` (zero coefficient residual, nonzero
-    payload residual) proves a corrupted tuple.
+    `reduce_row`, then — when the residual is nonzero, i.e. the row is
+    independent — `insert_row`.  Returns ``(B, Y, filled,
+    was_independent, inconsistent)``; ``inconsistent`` (zero coefficient
+    residual, nonzero payload residual) proves a corrupted tuple.
     """
-    coeffs = torch.where(filled, a, torch.zeros_like(a))
-    red_a = a ^ field.matmul(coeffs[None, :], B)[0]
-    red_c = c ^ field.matmul(coeffs[None, :], Y)[0]
-    nz = red_a != 0
-    found = bool(nz.any())
+    red_a, red_c = reduce_row(field, B, Y, filled, a, c)
+    found = bool((red_a != 0).any())
     bad = (not found) and bool((red_c != 0).any())
     if found:
-        piv = int(torch.nonzero(nz)[0, 0])             # first nonzero column
-        inv = field.inv(red_a[piv])
-        new_a = field.mul(red_a, inv)
-        new_c = field.mul(red_c, inv)
-        fac = B[:, piv]
-        B = B ^ field.mul(fac[:, None], new_a[None, :])
-        Y = Y ^ field.mul(fac[:, None], new_c[None, :])
-        B[piv] = new_a
-        Y[piv] = new_c
-        filled = filled.clone()
-        filled[piv] = True
+        B, Y, filled = insert_row(field, B, Y, filled, red_a, red_c)
     return B, Y, filled, found, bad
 
 

@@ -3,6 +3,12 @@
 // gf_matmul_packed_kernel<S, false, ...>
 //   Replaces the TPU kernel src/repro/kernels/gf_matmul.py
 //   gf_matmul_pallas_packed (_packed_kernel, _xtime_packed).
+// gf_matmul_packed_batched_kernel<S, ...>
+//   The same product for J independent problems in one launch,
+//   C[j] = A[j]·P[j] (grid.z = j, batch strides), the port's instance of
+//   the reference's jax.vmap over the decoder bank's slots
+//   (src/repro/engine/stream.py _bank_fns).  It runs packed_product, the
+//   body of gf_matmul_packed_kernel, on problem j's pointers.
 // gf_matmul_packed_kernel<S, true, ...>
 //   Replaces src/repro/kernels/gf_matmul.py gf_matmul_pallas_packed_seeded
 //   (_packed_seeded_kernel, with repro.core.seeds threefry2x32/coeff_words).
@@ -80,11 +86,13 @@
 // shared by the thread's 2 words; the unpacked step 3 + 14 rung
 // operations and per output row 16 LOP3 and the 2 LDS.128.
 //
-// Contract (checked by the Python wrappers): A (n, K) uint8 contiguous;
+// Contract (checked by the Python wrappers): A (n, K) uint8 contiguous
+// (batched: (J, n, K), problem j at A + j·a_batch);
 // seeds (n,) int64 whose low 32 bits are the seeds; P (K, L) uint8 with
 // unit column stride and row stride ldp (a column slice of a wider
 // matrix is fine); C (n, L) uint8 with unit column stride and row stride
-// ldc (the chunk's columns of the engine's output).  Ragged L is masked
+// ldc (the chunk's columns of the engine's output); batched: problem j's
+// P and C at P + j·p_batch and C + j·c_batch, J <= 65,535.  Ragged L is masked
 // here, word by word and byte by byte, not padded by the caller; n != K
 // is fine; L = 0 returns at once.  The blocks share nothing, so they run
 // in any order.
@@ -399,12 +407,15 @@ __device__ __forceinline__ uint32_t reduce_lanes16(uint32_t acc) {
 // (a packet row's words, its masks) one packet row at a time, the loads
 // of the next kGroup - 1 rows in flight in a ring of registers.  The
 // loop over packet rows stays rolled, so the body the warps share is one
-// unrolled step (R·s·V selects) and fits the instruction cache.
+// unrolled step (R·s·V selects) and fits the instruction cache.  The
+// masks come from problem blockIdx.z's A, at A + blockIdx.z · a_batch
+// (a_batch = 0 but in the batched kernel), formed where a tile's masks
+// are built so that no pointer of it is live across the loop.
 template <int S, bool Seeded, int V, int R, typename Step>
 __device__ __forceinline__ void stream_packets(
-    uint32_t* masks, const uint8_t* A, const long long* seeds,
-    const uint8_t* P, long long ldp, int row0, int rows, int K, long long L,
-    long long b0, int p_align, Step&& step) {
+    uint32_t* masks, const uint8_t* A, long long a_batch,
+    const long long* seeds, const uint8_t* P, long long ldp, int row0,
+    int rows, int K, long long L, long long b0, int p_align, Step&& step) {
   const bool active = b0 < L;
   uint32_t ring[kGroup][V] = {};    // packet rows k .. k + kGroup - 1
 #pragma unroll
@@ -417,7 +428,8 @@ __device__ __forceinline__ void stream_packets(
   for (int k0 = 0; k0 < K; k0 += kKTile) {
     const int kt = min(kKTile, K - k0);
     if (k0 > 0) __syncthreads();     // every thread is done with the tile
-    build_masks<S, Seeded, R>(masks, A, seeds, row0, rows, K, k0, kt);
+    build_masks<S, Seeded, R>(masks, A + blockIdx.z * a_batch, seeds, row0,
+                              rows, K, k0, kt);
     __syncthreads();
     if (!active) continue;
 #pragma unroll 1
@@ -440,19 +452,23 @@ __device__ __forceinline__ void stream_packets(
   }
 }
 
-// grid = (ceil(L / (4·V·kThreads)), ceil(n / tile)); block = kThreads;
+// grid = (ceil(L / (4·V·kThreads)), ceil(n / tile)[, J]); block = kThreads;
 // dynamic shared memory = min(K, kKTile) · R · 32 bytes.  Block (x, y)
 // computes output rows tile·y .. tile·y + tile - 1 (tile <= R) at bytes
-// 4·V·(kThreads·x + threadIdx.x) .. + 4·V - 1.
+// 4·V·(kThreads·x + threadIdx.x) .. + 4·V - 1.  The body of both packed
+// kernels; `masks` is the block's dynamic shared memory.  P is the
+// block's problem's; its A and C lie at A + blockIdx.z · a_batch and
+// C + blockIdx.z · c_batch, formed where they are used: the kernel's
+// arguments sit in the constant bank, and per-problem pointers formed
+// once at the top hold registers across the loop (at s = 8 they left
+// the batched instance at 80 registers with 56 bytes of spills; formed
+// at use, it takes 66 and spills nothing).
 template <int S, bool Seeded, int V, int R>
-__global__ void __launch_bounds__(kThreads)
-gf_matmul_packed_kernel(const uint8_t* __restrict__ A,
-                        const long long* __restrict__ seeds,
-                        const uint8_t* __restrict__ P, long long ldp,
-                        uint8_t* __restrict__ C, long long ldc, int n, int K,
-                        long long L, int tile, int p_align, int c_align) {
-  extern __shared__ uint4 smem[];
-  uint32_t* masks = reinterpret_cast<uint32_t*>(smem);
+__device__ __forceinline__ void packed_product(
+    uint32_t* masks, const uint8_t* __restrict__ A, long long a_batch,
+    const long long* __restrict__ seeds, const uint8_t* __restrict__ P,
+    long long ldp, uint8_t* __restrict__ C, long long ldc, long long c_batch,
+    int n, int K, long long L, int tile, int p_align, int c_align) {
   const int row0 = blockIdx.y * tile;
   const int rows = min(tile, n - row0);
   const long long b0 =
@@ -467,13 +483,13 @@ gf_matmul_packed_kernel(const uint8_t* __restrict__ A,
   // the loop in two instances: full tiles (the main path) and the rest
   if (rows == R) {
     stream_packets<S, Seeded, V, R>(
-        masks, A, seeds, P, ldp, row0, rows, K, L, b0, p_align,
+        masks, A, a_batch, seeds, P, ldp, row0, rows, K, L, b0, p_align,
         [&](const uint32_t (&p)[V], const uint32_t* m) {
           ladder_step<S, V, R, true>(p, m, rows, acc);
         });
   } else {
     stream_packets<S, Seeded, V, R>(
-        masks, A, seeds, P, ldp, row0, rows, K, L, b0, p_align,
+        masks, A, a_batch, seeds, P, ldp, row0, rows, K, L, b0, p_align,
         [&](const uint32_t (&p)[V], const uint32_t* m) {
           ladder_step<S, V, R, false>(p, m, rows, acc);
         });
@@ -482,10 +498,42 @@ gf_matmul_packed_kernel(const uint8_t* __restrict__ A,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r < rows) {
-      store_words<V>(C + static_cast<long long>(row0 + r) * ldc, b0, L,
-                     c_align, acc[r]);
+      store_words<V>(C + blockIdx.z * c_batch +
+                         static_cast<long long>(row0 + r) * ldc,
+                     b0, L, c_align, acc[r]);
     }
   }
+}
+
+template <int S, bool Seeded, int V, int R>
+__global__ void __launch_bounds__(kThreads)
+gf_matmul_packed_kernel(const uint8_t* __restrict__ A,
+                        const long long* __restrict__ seeds,
+                        const uint8_t* __restrict__ P, long long ldp,
+                        uint8_t* __restrict__ C, long long ldc, int n, int K,
+                        long long L, int tile, int p_align, int c_align) {
+  extern __shared__ uint4 smem[];
+  packed_product<S, Seeded, V, R>(reinterpret_cast<uint32_t*>(smem), A, 0,
+                                  seeds, P, ldp, C, ldc, 0, n, K, L, tile,
+                                  p_align, c_align);
+}
+
+// Problem j = blockIdx.z: C[j] = A[j]·P[j].  The alignments hold for
+// every problem's rows (the launcher folds the batch strides in).
+template <int S, int V, int R>
+__global__ void __launch_bounds__(kThreads)
+gf_matmul_packed_batched_kernel(const uint8_t* __restrict__ A,
+                                long long a_batch,
+                                const uint8_t* __restrict__ P, long long ldp,
+                                long long p_batch, uint8_t* __restrict__ C,
+                                long long ldc, long long c_batch, int n,
+                                int K, long long L, int tile, int p_align,
+                                int c_align) {
+  extern __shared__ uint4 smem[];
+  packed_product<S, false, V, R>(reinterpret_cast<uint32_t*>(smem), A,
+                                 a_batch, nullptr, P + blockIdx.z * p_batch,
+                                 ldp, C, ldc, c_batch, n, K, L, tile,
+                                 p_align, c_align);
 }
 
 // Same grid, block and shared memory as the packed kernels.
@@ -513,7 +561,7 @@ gf_matmul_unpacked_kernel(const uint8_t* __restrict__ A,
   // one instance of the loop, the full tile tested per step: with the
   // unpacked step's 16 rungs per word a second instance was slower
   stream_packets<8, false, V, R>(
-      masks, A, nullptr, P, ldp, row0, rows, K, L, b0, p_align,
+      masks, A, 0, nullptr, P, ldp, row0, rows, K, L, b0, p_align,
       [&](const uint32_t (&p)[V], const uint32_t* m) {
         clmul_step<S, V, R, false>(p, m, rows, acc02, acc13);
       });
@@ -578,6 +626,38 @@ int launch_packed(const uint8_t* A, const long long* seeds, const uint8_t* P,
   });
 }
 
+int launch_packed_batched(const uint8_t* A, long long a_batch,
+                          const uint8_t* P, long long ldp, long long p_batch,
+                          uint8_t* C, long long ldc, long long c_batch, int J,
+                          int n, int K, long long L, int s, int device,
+                          cudaStream_t stream) {
+  if (J <= 0 || n <= 0 || L <= 0) return 0;
+  if (s < 1 || s > 8 || K < 0 || J > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int V = kWords, R = kTileRows;
+  Geometry g = geometry(P, ldp, C, ldc, n, K, L);
+  g.grid.z = static_cast<unsigned>(J);
+  // every problem's rows: the widest load that the batch strides keep
+  g.p_align = std::min(g.p_align, gf::row_alignment(P, p_batch));
+  g.c_align = std::min(g.c_align, gf::row_alignment(C, c_batch));
+  return gf::on_device(device, [&] {
+    switch (s) {
+#define GF_CASE(SS)                                                          \
+  case SS:                                                                   \
+    gf_matmul_packed_batched_kernel<SS, V, R>                                \
+        <<<g.grid, kThreads, g.smem, stream>>>(A, a_batch, P, ldp, p_batch,  \
+                                               C, ldc, c_batch, n, K, L,     \
+                                               g.tile, g.p_align,            \
+                                               g.c_align);                   \
+    break;
+      GF_CASE(1) GF_CASE(2) GF_CASE(3) GF_CASE(4)
+      GF_CASE(5) GF_CASE(6) GF_CASE(7) GF_CASE(8)
+#undef GF_CASE
+    }
+  });
+}
+
 int launch_unpacked(const uint8_t* A, const uint8_t* P, long long ldp,
                     uint8_t* C, long long ldc, int n, int K, long long L,
                     int s, int device, cudaStream_t stream) {
@@ -620,6 +700,17 @@ int gf_matmul_packed_seeded(const void* seeds, const void* P, long long ldp,
                              static_cast<const uint8_t*>(P), ldp,
                              static_cast<uint8_t*>(C), ldc, n, K, L, s,
                              device, static_cast<cudaStream_t>(stream));
+}
+
+int gf_matmul_packed_batched(const void* A, long long a_batch, const void* P,
+                             long long ldp, long long p_batch, void* C,
+                             long long ldc, long long c_batch, int J, int n,
+                             int K, long long L, int s, int device,
+                             void* stream) {
+  return launch_packed_batched(
+      static_cast<const uint8_t*>(A), a_batch, static_cast<const uint8_t*>(P),
+      ldp, p_batch, static_cast<uint8_t*>(C), ldc, c_batch, J, n, K, L, s,
+      device, static_cast<cudaStream_t>(stream));
 }
 
 int gf_matmul_unpacked(const void* A, const void* P, long long ldp, void* C,

@@ -7,13 +7,17 @@ applies A^-1 the same way.  Three hand-written Hopper kernels live in
 
 * `gf_matmul_packed(A, P, s=)` — replaces the TPU kernel
   `repro.kernels.gf_matmul.gf_matmul_pallas_packed`;
+* `gf_matmul_packed_batched(A, P, s=)` — J independent packed
+  products C[j] = A[j]·P[j] in one launch: the decoder bank's tick
+  (`repro_torch.engine.stream.DecoderBank`), the port's instance of the
+  reference's `jax.vmap` over slots;
 * `gf_matmul_packed_seeded(seeds, P, s=)` — replaces
   `gf_matmul_pallas_packed_seeded`: row i's coefficients are
   regenerated inside the kernel from seed i with Threefry-2x32-20;
 * `gf_matmul_unpacked(A, P, s=)` — replaces `gf_matmul_pallas`: the
   carry-less multiply and polynomial reduction of one symbol per lane.
 
-The first two compute on four symbols per 32-bit word with the
+The packed kernels compute on four symbols per 32-bit word with the
 byte-masked xtime ladder below.  A wrapper decides by the tensor's
 device alone: a
 CPU tensor runs the plain PyTorch version (`kernels.ref`), a CUDA
@@ -80,13 +84,25 @@ _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
               ctypes.c_void_p]
 
 
+# A, a_batch, P, ldp, p_batch, C, ldc, c_batch, J, n, K, L, s, device,
+# stream
+_BATCHED_SIGNATURE = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built library with every C function's types declared."""
     from . import build
 
-    return declare(build.load("gf_matmul"), (
+    lib = declare(build.load("gf_matmul"), (
         "gf_matmul_packed", "gf_matmul_packed_seeded", "gf_matmul_unpacked"))
+    lib.gf_matmul_packed_batched.argtypes = _BATCHED_SIGNATURE
+    lib.gf_matmul_packed_batched.restype = ctypes.c_int
+    return lib
 
 
 def declare(lib: ctypes.CDLL, kernels: tuple[str, ...]) -> ctypes.CDLL:
@@ -205,6 +221,62 @@ def gf_matmul_packed_seeded(seeds: torch.Tensor, P: torch.Tensor, *,
                   seeds.shape[0], s, out)
 
 
+def gf_matmul_packed_batched(A: torch.Tensor, P: torch.Tensor, *,
+                             s: int = 8, out: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """C[j] = A[j]·P[j] over GF(2^s) for every j, in one launch.
+
+    A (J, n, K) uint8, P (J, K, L) uint8 -> (J, n, L).  P and `out` may
+    be strided views (unit column stride; any row and batch stride), so
+    a bank's state buffer is read and written in place.  CUDA tensors
+    launch the packed kernel's batched instance (grid.z = j); CPU
+    tensors run `ref.gf_matmul_packed_batched_ref`, a loop of
+    `ref.gf_matmul_packed_ref` over j.
+    """
+    check_field(s)
+    if P.dim() != 3 or P.dtype != torch.uint8:
+        raise TypeError(f"P must be a 3-D uint8 tensor, got "
+                        f"{P.dtype} {tuple(P.shape)}")
+    if P.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {P.device}")
+    J, K, L = P.shape
+    if A.dim() != 3 or A.dtype != torch.uint8 or A.shape[0] != J \
+            or A.shape[2] != K:
+        raise ValueError(f"A must be ({J}, n, {K}) uint8, got "
+                         f"{A.dtype} {tuple(A.shape)}")
+    if A.device != P.device:
+        raise ValueError(f"A on {A.device} but P on {P.device}")
+    n = A.shape[1]
+    if out is not None:
+        if out.shape != (J, n, L) or out.dtype != torch.uint8:
+            raise ValueError(f"out must be ({J}, {n}, {L}) uint8, got "
+                             f"{out.dtype} {tuple(out.shape)}")
+        if out.device != P.device:
+            raise ValueError(f"out on {out.device} but P on {P.device}")
+        if out.numel() and out.stride(2) != 1:
+            raise ValueError("out needs unit column stride")
+    if P.device.type == "cpu":
+        return plain(ref.gf_matmul_packed_batched_ref(A, P, s), out)
+    if out is None:
+        out = torch.empty((J, n, L), dtype=torch.uint8, device=P.device)
+    if J == 0 or n == 0 or L == 0:
+        return out
+    if P.stride(2) != 1:
+        P = P.contiguous()
+    A = A.contiguous()
+    stream = torch.cuda.current_stream(P.device).cuda_stream
+    err = _lib().gf_matmul_packed_batched(
+        A.data_ptr(), A.stride(0), P.data_ptr(), P.stride(1), P.stride(0),
+        out.data_ptr(), out.stride(1), out.stride(0), J, n, K, L, s,
+        P.device.index, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"gf_matmul_packed_batched launch failed: CUDA error {err} "
+            f"({_lib().gf_error_string(err).decode()})")
+    gf_matmul_packed_batched.launches += 1
+    return out
+
+
 def gf_matmul_unpacked(A: torch.Tensor, P: torch.Tensor, *, s: int = 8,
                        out: torch.Tensor | None = None) -> torch.Tensor:
     """C = A·P over GF(2^s) by carry-less multiply and reduction, one
@@ -227,11 +299,13 @@ def gf_matmul_unpacked(A: torch.Tensor, P: torch.Tensor, *, s: int = 8,
 
 
 gf_matmul_packed.launches = 0
+gf_matmul_packed_batched.launches = 0
 gf_matmul_packed_seeded.launches = 0
 gf_matmul_unpacked.launches = 0
 
 #: every hand-written kernel wrapper of this module
-WRAPPERS = (gf_matmul_packed, gf_matmul_packed_seeded, gf_matmul_unpacked)
+WRAPPERS = (gf_matmul_packed, gf_matmul_packed_batched,
+            gf_matmul_packed_seeded, gf_matmul_unpacked)
 
 
 def reset_launch_counts() -> None:

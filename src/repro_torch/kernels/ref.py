@@ -9,7 +9,8 @@ the card:
 
 * `gf_matmul_packed_ref`, `gf_matmul_packed_seeded_ref` — four symbols
   per int32 word, the Russian-peasant ladder
-  ``acc ^= (P_k·x^i) & bit_i(A[:, k])``;
+  ``acc ^= (P_k·x^i) & bit_i(A[:, k])``; `gf_matmul_packed_batched_ref`,
+  the first on each of J problems (`gf_matmul_packed_batched`);
 * `gf_matmul_clmul_ref` — one symbol per int32 lane, carry-less
   multiply then reduction by the primitive polynomial
   (`gf_matmul_unpacked`);
@@ -104,6 +105,18 @@ def gf_matmul_packed_ref(A: torch.Tensor, P: torch.Tensor, s: int
     A32 = A.to(device=P.device, dtype=torch.int32)
     acc = _ladder(lambda k: A32[:, k][:, None], pack_lanes(P), n, K, s)
     return unpack_lanes(acc, L)
+
+
+def gf_matmul_packed_batched_ref(A: torch.Tensor, P: torch.Tensor, s: int
+                                ) -> torch.Tensor:
+    """The batched instance's function: `gf_matmul_packed_ref` on each
+    problem, A (J, n, K), P (J, K, L) -> (J, n, L)."""
+    J, n, _ = A.shape
+    if J == 0:
+        return torch.zeros((0, n, P.shape[2]), dtype=torch.uint8,
+                           device=P.device)
+    return torch.stack([gf_matmul_packed_ref(A[j], P[j], s)
+                        for j in range(J)])
 
 
 # ---------------------------------------------------------------------------

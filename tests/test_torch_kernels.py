@@ -572,6 +572,79 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 4, 8])
+def test_cuda_batched_kernel_matches_plain_version(cuda_device, s):
+    """The packed kernel's batched instance == a loop of the packed plain
+    version, byte for byte: J = 1, 3 and 8 problems, ragged L, strided P
+    views with 4- and 8-byte aligned rows, K above the mask tile and
+    4,099; it writes nothing outside each problem's output view."""
+    g = torch.Generator(device=cuda_device).manual_seed(10 + s)
+    for J, n, K, L, off, extra in [(1, 8, 8, 1 << 12, 0, 0),
+                                   (3, 10, 18, 4097, 4, 3),
+                                   (8, 10, 18, 2051, 8, 5),
+                                   (3, 5, 40, 1030, 3, 1),
+                                   (2, 3, 4099, 517, 0, 11),
+                                   (3, 4, 4, 0, 0, 4)]:
+        wide = torch.randint(0, 1 << s, (J, K + 2, L + off + extra),
+                             generator=g, device=cuda_device,
+                             dtype=torch.uint8)
+        P = wide[:, 1:1 + K, off:off + L]
+        A = torch.randint(0, 1 << s, (J, n, K), generator=g,
+                          device=cuda_device, dtype=torch.uint8)
+        wide_out = torch.zeros((J, n + 2, L + off + extra),
+                               device=cuda_device, dtype=torch.uint8)
+        before = tgm.gf_matmul_packed_batched.launches
+        got = tgm.gf_matmul_packed_batched(
+            A, P, s=s, out=wide_out[:, 1:1 + n, off:off + L])
+        torch.cuda.synchronize()
+        assert tgm.gf_matmul_packed_batched.launches == before + (1 if L
+                                                                  else 0)
+        assert torch.equal(got, tref.gf_matmul_packed_batched_ref(A, P, s))
+        for j in range(J):
+            assert torch.equal(got[j], tgm.gf_matmul_packed(A[j], P[j], s=s))
+        assert not wide_out[:, 0].any() and not wide_out[:, n + 1].any()
+        assert not wide_out[:, :, :off].any() and \
+            not wide_out[:, :, off + L:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_decoder_and_bank_match_the_cpu(cuda_device):
+    """The per-arrival decoder and the bank on the card decode what they
+    decode on the CPU, with one launch per push, block and tick."""
+    from repro_torch.engine import DecoderBank, StreamDecoder
+
+    rng = np.random.default_rng(0)
+    K, L, J, gt = 6, 3001, 3, 4
+    P = rng.integers(0, 256, (K, L)).astype(np.uint8)
+    A = rng.integers(0, 256, (12, K)).astype(np.uint8)
+    A[4] = A[1]
+    C = tref.gf_matmul_ref(torch.from_numpy(A), torch.from_numpy(P), 8)
+    dec = {d: StreamDecoder(K=K, L=L, device=d) for d in ("cpu", "cuda")}
+    before = tgm.gf_matmul_packed.launches
+    for d, x in dec.items():
+        for i in range(3):
+            x.push(A[i], C[i].to(d))
+        x.ingest(A[3:], C[3:].to(d))
+    assert tgm.gf_matmul_packed.launches == before + 4
+    assert dec["cuda"].decoded_at == dec["cpu"].decoded_at
+    assert torch.equal(dec["cuda"].decode()[1].cpu(), torch.from_numpy(P))
+    ticks = [(rng.integers(0, 256, (J, gt, K)).astype(np.uint8),
+              rng.integers(0, 256, (J, gt, L)).astype(np.uint8))
+             for _ in range(3)]
+    banks = {d: DecoderBank(J, K, L, device=d) for d in ("cpu", "cuda")}
+    before = tgm.gf_matmul_packed_batched.launches
+    for bank in banks.values():
+        for j in range(J):
+            bank.open(j, k=K)
+        for rows, Cb in ticks:
+            bank.ingest(rows=rows, C=Cb)
+    assert tgm.gf_matmul_packed_batched.launches == before + len(ticks)
+    for j in range(J):
+        assert torch.equal(banks["cuda"].payload(j).cpu(),
+                           banks["cpu"].payload(j))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s", [1, 2, 3, 4, 8])
 def test_cuda_unpacked_kernels_match_plain_versions(cuda_device, s):
     """`gf_matmul_unpacked` (bytes 0..255, so >= 2^s too) and
