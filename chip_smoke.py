@@ -61,7 +61,27 @@ failing on the first wrong result:
    true P's and an isolated `StreamDecoder`'s, both modes equal, and
    batched dispatches = ticks = launches of `gf_matmul_packed_batched`;
    (d) the committed fixture `tests/data/serve_trace.json` must give
-   its recorded completions.
+   its recorded completions;
+9. the paper's FL experiment (after phase 7) at the CNN's full width:
+   N = 100 clients, 10 a round, 5,000 synthetic 32x32x3 images (test
+   1,000), iid, batch 16, adam(2e-3), 2 local epochs, 3 rounds of each
+   of six runs through `run_experiment` / `run_async_experiment`:
+   FedAvg under the blind box (budget 10), FedNC s = 8 and s = 1 under
+   the blind box, FedNC s = 8 behind `MultiHopChannel(eta=100)`, the
+   hierarchical round (`cuda`, s = 1: the XOR kernel; 2 edges, 2
+   spare tuples each) and the async server (s = 8, budget 18, Pareto
+   gaps, compute-coupled by the measured training walls).  (a) every
+   decoded round of a coded run equals `fedavg_round` of the same
+   cohort and weights bit for bit; (b) every round's loss is finite
+   and its accuracy in [0, 1]; (c) each coded run launches its kernel
+   (packed, or XOR for the hierarchical run) and FedAvg no GF kernel;
+   (d) one `LocalTrainer` SGD step on the card equals the CPU's within
+   rtol 1e-4, atol 1e-6 on every leaf; (e) the async rounds consume
+   between 10 and 18 arrivals and their coupled clock is at least the
+   network's, which is positive.  Per run it prints the decode
+   failures beside `error_probability_bound(s, eta)`, the accuracy,
+   the mean round wall, local training's share of it and the
+   aggregation's synchronized ms, then profiles one FedNC s = 8 round.
 
 Phase 1 also holds the packed kernel's batched instance against its
 plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
@@ -78,7 +98,7 @@ tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
 and global loads by width; the selects per word and packet row) and the
 count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
-Each of phases 2-8 drives the main path with every launch count set to
+Each of phases 2-9 (each run of phase 9) drives the main path with every launch count set to
 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
 one prefill and one serve step with torch.profiler (device busy share, device time per
@@ -91,7 +111,7 @@ kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-8), error, time, plain time and bound.  The last line is
+2-9), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -172,6 +192,27 @@ QWEN_PROMPT = 2048
 QWEN_DECODE = 32                 # greedy steps; the cache holds prompt + these
 SEED_QWEN = 5                    # weights, drawn on the card
 SEED_PROMPT = 6                  # prompt token ids
+# phase 9: the paper's FL experiment (examples/paper_experiments.py's
+# settings at the paper's 32x32 images).  Coding rows and channel plans
+# are host draws, so which rounds decode is as on the CPU: s = 1 under
+# the blind box 1 of 3, multi-hop 1 of 3 (the relays' composition is
+# singular in rounds 0 and 2 at the channel's seed 0), hierarchical 2
+# of 3; each coded run therefore launches its kernel.
+FL_CLIENTS = 100
+FL_PER_ROUND = 10
+FL_SAMPLES = 5000                # the synthetic CIFAR stand-in
+FL_TEST = 1000
+FL_BATCH = 16
+FL_EPOCHS = 2
+FL_ROUNDS = 3
+FL_LR = 2e-3                     # adam
+FL_ETA = 100                     # recoding hops of the multi-hop run
+SEED_FL = 0                      # rounds' numpy generator and initial CNN
+# (d): one SGD step on the card and on the CPU, both full float32 (the
+# trainer turns TF32 off).  At lr 0.1 a weight moves by ~1e-2, so a
+# TF32 product (~1e-3 relative) would move it by ~1e-5, far past atol.
+STEP_LR = 0.1
+STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
 # cached decode vs fresh forward, float32 model: 36 layers of float32
 # products summed in other orders (one row against 8,196), far below a
 # bf16 step (2^-8) at unit scale, so a wrong slot, position or mask shows
@@ -1253,6 +1294,228 @@ def trace_serving(cfg, params, prompt) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the paper's FL experiment at full width
+# ---------------------------------------------------------------------------
+
+GF_KERNELS = ("gf_matmul_packed", "gf_matmul_packed_seeded",
+              "gf_matmul_unpacked", "gf2_matmul", "gf_matmul_packed_batched")
+
+
+class Cohorts:
+    """A strategy that keeps each round's cohort, weights and result,
+    and the synchronized wall of each aggregation."""
+
+    def __init__(self, strategy):
+        self.strategy = strategy
+        self.rounds: list = []
+
+    def aggregate(self, client_params, weights, prev_global, rng, **kw):
+        from repro_torch.obs import device_sync
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = self.strategy.aggregate(client_params, weights, prev_global,
+                                      rng, **kw)
+        device_sync(res.global_params)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.rounds.append((client_params, weights, res, ms))
+        return res
+
+
+class TimedTrainer:
+    """A LocalTrainer whose `train` calls are timed synchronized."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.local_epochs = trainer.local_epochs
+        self.seconds = 0.0
+
+    def train(self, params, batch_iter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.trainer.train(params, batch_iter)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def fl_setting():
+    """Phase 9's data (numpy, from seeds), partitions and initial CNN."""
+    from repro_torch.data import (iid_partition, make_image_dataset)
+    from repro_torch.models.cnn import init_cnn
+
+    ds = make_image_dataset(FL_SAMPLES, seed=0, size=32, noise=1.0)
+    test = make_image_dataset(FL_TEST, seed=99, size=32, noise=1.0)
+    parts = iid_partition(ds.labels, FL_CLIENTS, seed=1)
+    init = init_cnn(torch.Generator("cuda").manual_seed(SEED_FL),
+                    image_size=32)
+    return ds, test, parts, init
+
+
+def fl_experiment(setting, strategy, optimizer=None):
+    from repro_torch.federation import FLExperiment, LocalTrainer
+    from repro_torch.models.cnn import cnn_accuracy, cnn_loss, merge_bn_stats
+    from repro_torch.optim import adam
+
+    ds, test, parts, _ = setting
+    trainer = LocalTrainer(loss_fn=lambda p, b: cnn_loss(p, b, train=True),
+                           optimizer=optimizer or adam(FL_LR),
+                           local_epochs=FL_EPOCHS,
+                           state_merge=merge_bn_stats, device="cuda")
+    return FLExperiment(trainer=TimedTrainer(trainer),
+                        strategy=Cohorts(strategy), partitions=parts,
+                        dataset=ds, test_set=test, eval_fn=cnn_accuracy,
+                        clients_per_round=FL_PER_ROUND,
+                        batch_size=FL_BATCH, seed=SEED_FL)
+
+
+def fl_strategies() -> dict:
+    """The six runs: (strategy, coded, η of its error bound, s)."""
+    from repro_torch.core.channel import BlindBoxChannel, MultiHopChannel
+    from repro_torch.core.fednc import FedNCConfig
+    from repro_torch.federation import (AsyncFedNCStrategy, FedAvgStrategy,
+                                        FedNCStrategy,
+                                        HierarchicalFedNCStrategy,
+                                        blind_box_schedule)
+    from repro_torch.sim import STRAGGLER_PROFILES
+
+    box = BlindBoxChannel(budget=FL_PER_ROUND)
+    return {
+        "fedavg blind box": (FedAvgStrategy(channel=box), False, 1, 0),
+        "fednc s=8 blind box": (FedNCStrategy(
+            config=FedNCConfig(s=8), channel=box, device="cuda"), True, 1, 8),
+        "fednc s=1 blind box": (FedNCStrategy(
+            config=FedNCConfig(s=1), channel=box, device="cuda"), True, 1, 1),
+        f"fednc s=8 multi-hop eta={FL_ETA}": (FedNCStrategy(
+            config=FedNCConfig(s=8), channel=MultiHopChannel(eta=FL_ETA),
+            device="cuda"), True, FL_ETA, 8),
+        "hierarchical s=1 cuda": (HierarchicalFedNCStrategy(
+            config=FedNCConfig(s=1, kernel_impl="cuda"), num_edges=2,
+            spare_per_edge=2, device="cuda"), True, 1, 1),
+        "async s=8 pareto": (AsyncFedNCStrategy(
+            config=FedNCConfig(s=8), budget=FL_PER_ROUND + 8,
+            schedule_fn=blind_box_schedule(STRAGGLER_PROFILES["pareto"]),
+            device="cuda"), True, 1, 8),
+    }
+
+
+def fl_run(name: str, setting, strategy, coded: bool, eta: int, s: int):
+    """One run of `FL_ROUNDS` rounds with checks (a), (b) and (e);
+    returns (logs, experiment)."""
+    from repro_torch.core.fednc import fedavg_round
+    from repro_torch.core.security import error_probability_bound
+    from repro_torch.federation import run_async_experiment, run_experiment
+    from repro_torch.federation.rounds import final_accuracy
+    from repro_torch.sim import ComputeModel
+
+    exp = fl_experiment(setting, strategy)
+    t0 = time.perf_counter()
+    if name.startswith("async"):
+        logs = run_async_experiment(exp, setting[3], FL_ROUNDS,
+                                    compute=ComputeModel(measured_scale=1.0))
+    else:
+        logs = run_experiment(exp, setting[3], FL_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for log in logs:                                               # (b)
+        check(np.isfinite(log.train_loss) and 0.0 <= log.test_acc <= 1.0,
+              f"phase 9 {name}: round {log.round} loss {log.train_loss} "
+              f"accuracy {log.test_acc}")
+    exact = 0
+    for t, (cohort, weights, res, _) in enumerate(exp.strategy.rounds):
+        if coded and res.decoded:                                  # (a)
+            want = fedavg_round(cohort, weights, None).global_params
+            check(same_tree(res.global_params, want),
+                  f"phase 9 {name}: round {t} aggregate != fedavg_round "
+                  f"of the same cohort")
+            exact += 1
+    if name.startswith("async"):                                   # (e)
+        for log in logs:
+            check(FL_PER_ROUND <= log.consumed <= FL_PER_ROUND + 8
+                  and log.sim_time >= log.sim_time_network > 0,
+                  f"phase 9 {name}: round {log.round} consumed "
+                  f"{log.consumed} sim_time {log.sim_time} network "
+                  f"{log.sim_time_network}")
+        print(f"phase 9 {name}: consumed {[l.consumed for l in logs]}, "
+              f"sim_time {[l.sim_time for l in logs]}, network "
+              f"{[l.sim_time_network for l in logs]}")
+    fails = sum(not log.decoded for log in logs)
+    walls = [log.wall_s for log in logs]
+    agg_ms = [ms for *_, ms in exp.strategy.rounds]
+    coding = (f"decode failed {fails}/{len(logs)} (error_probability_bound"
+              f"(s={s}, eta={eta}) = {error_probability_bound(s, eta):.6f}),"
+              f" == fedavg_round bit-exact in {exact} decoded rounds"
+              if coded else "uncoded")
+    print(f"phase 9 {name}: {FL_ROUNDS} rounds in {wall:.3f} s, {coding}; "
+          f"loss {[round(log.train_loss, 6) for log in logs]}, accuracy "
+          f"{[log.test_acc for log in logs]} (final_accuracy "
+          f"{final_accuracy(logs):.4f}), mean round wall "
+          f"{sum(walls) / len(walls):.6f} s, local training "
+          f"{100 * exp.trainer.seconds / sum(walls):.2f}% of it, aggregate "
+          f"{sum(agg_ms) / len(agg_ms):.3f} ms mean "
+          f"({', '.join(f'{ms:.3f}' for ms in agg_ms)})")
+    return logs, exp
+
+
+def fl_step_card_vs_cpu(setting) -> float:
+    """(d): one `LocalTrainer` SGD step on the same parameters and batch,
+    on the card and on the CPU; returns the largest difference."""
+    from repro_torch.core import packets as pkt
+    from repro_torch.federation import LocalTrainer
+    from repro_torch.models.cnn import cnn_loss, merge_bn_stats
+    from repro_torch.optim import sgd
+
+    ds, _, _, init = setting
+    batch = (ds.images[:FL_BATCH], ds.labels[:FL_BATCH])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = LocalTrainer(loss_fn=lambda p, b: cnn_loss(p, b, train=True),
+                               optimizer=sgd(STEP_LR), local_epochs=1,
+                               state_merge=merge_bn_stats, device=dev)
+        params = pkt.tree_map(lambda x, d=dev: x.to(d), init)
+        outs[dev], _ = trainer.train(params, iter([batch]))
+    worst = 0.0
+    for a, b in zip(pkt.tree_flatten(outs["cuda"])[0],
+                    pkt.tree_flatten(outs["cpu"])[0], strict=True):
+        a = a.cpu()
+        check(torch.allclose(a, b, **STEP_TOL),
+              f"phase 9 (d): a card SGD step differs from the CPU's by "
+              f"{(a - b).abs().max().item()} ({STEP_TOL})")
+        worst = max(worst, (a - b).abs().max().item())
+    print(f"phase 9 (d): one LocalTrainer sgd({STEP_LR}) step, card vs "
+          f"CPU: every leaf within {STEP_TOL}, max |diff| {worst}")
+    return worst
+
+
+def phase9(wrappers, runs: list) -> None:
+    """The six runs, each a main path of its own (launch counts set to 0
+    before it and read after, appended to `runs`), then (d) and one
+    profiled FedNC s = 8 round."""
+    from repro_torch.federation import run_experiment
+
+    t0 = time.perf_counter()
+    setting = fl_setting()
+    packed = ("gf_matmul_packed",)
+    for name, (strategy, coded, eta, s) in fl_strategies().items():
+        needs = (("gf2_matmul",) if "hierarchical" in name else packed
+                 ) if coded else ()
+        counts, _ = main_path(f"phase 9 {name}", wrappers, needs,
+                              lambda: fl_run(name, setting, strategy, coded,
+                                             eta, s))
+        if not coded:                                              # (c)
+            check(all(counts[k] == 0 for k in GF_KERNELS),
+                  f"phase 9 {name}: a GF kernel was launched: {counts}")
+        runs.append((counts, None))
+    fl_step_card_vs_cpu(setting)
+    strategy = fl_strategies()["fednc s=8 blind box"][0]
+    exp = fl_experiment(setting, strategy)
+    run_experiment(exp, setting[3], 1)                  # warm, untraced
+    device_profile("fl round fednc s=8 blind box",
+                   lambda: run_experiment(exp, setting[3], 1))
+    print(f"phase 9: {time.perf_counter() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
 # where a round's time goes: one traced round per 500M configuration
 # ---------------------------------------------------------------------------
 
@@ -1600,11 +1863,12 @@ def main() -> None:
     counts7, _ = main_path("phase 7", wrappers, ("flash_attention",),
                            lambda: phase7(fa, cfg, params, prompt))
     runs.append((counts7, None))
+    phase9(wrappers, runs)
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-8)")
+          + " (phases 2-9)")
     trace_serving(cfg, params, prompt)
     del params, prompt
     torch.cuda.empty_cache()

@@ -9,6 +9,9 @@ The port of `repro.core.channel`'s coding channels:
 * `MultiHopChannel` — η network-interior links each re-code the stream
                       with fresh random coefficients (Prop. 2's η).
 
+An async server reads arrivals in the order of an `ArrivalSchedule`
+and reports the simulated clock in an `AsyncChannelReport`.
+
 Each decides its whole action on the n transmitted tuples up front
 (``plan_transform`` -> :class:`RowGather` or :class:`RowMix`) with a
 seeded numpy generator, drawing exactly what the reference draws, and
@@ -23,6 +26,7 @@ relay's plan, :class:`RowTamper`, comes from
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +43,56 @@ class ChannelReport:
     delivered: int
     decodable: bool
     distinct_sources: int = -1      # FedAvg bookkeeping under blind box
+
+
+@dataclass
+class AsyncChannelReport(ChannelReport):
+    """ChannelReport plus the simulated clock: when (and after how
+    many arrivals) an async server had what it needed."""
+    consumed: int = -1              # arrivals until rank K (Prop. 1)
+    sim_time: float = float("nan")  # simulated clock at decode
+    # decode time of the network-only schedule (no compute coupling);
+    # equals sim_time when no ComputeModel was in play
+    sim_time_network: float = float("nan")
+
+
+@dataclass(frozen=True)
+class ArrivalSchedule:
+    """Per-packet arrival times (host numpy) for n transmitted tuples.
+
+    `order` is the permutation that sorts transmission order into
+    arrival order, and `time_of(g)` is the simulated clock after the
+    g-th arrival.  Times may be in any order: relays and per-client
+    latency reorder packets.
+    """
+
+    times: np.ndarray
+
+    @property
+    def n(self) -> int:
+        return int(np.asarray(self.times).shape[0])
+
+    @functools.cached_property
+    def order(self) -> np.ndarray:
+        """Transmission-order indices sorted by arrival time (stable)."""
+        return np.argsort(np.asarray(self.times), kind="stable")
+
+    def time_of(self, g: int) -> float:
+        """Simulated clock once g arrivals have been heard (1-based)."""
+        if not 1 <= g <= self.n:
+            raise ValueError(f"arrival count {g} outside 1..{self.n}")
+        return float(np.asarray(self.times)[self.order[g - 1]])
+
+    def offset_by(self, offsets) -> "ArrivalSchedule":
+        """A new schedule with per-packet `offsets` (transmission order)
+        added to the times: a packet cannot leave before its source
+        client finished computing."""
+        offsets = np.asarray(offsets, np.float64)
+        times = np.asarray(self.times, np.float64)
+        if offsets.shape != times.shape:
+            raise ValueError(
+                f"offsets shape {offsets.shape} != times {times.shape}")
+        return ArrivalSchedule(times + offsets)
 
 
 @dataclass(frozen=True)
@@ -128,6 +182,27 @@ class BlindBoxChannel:
         out = batch[torch.as_tensor(idx, dtype=torch.int64)]
         return out, ChannelReport(batch.n, self.budget, _decodable(out, s),
                                   distinct_sources=len(set(idx.tolist())))
+
+    def receive_plain(self, packets: torch.Tensor
+                      ) -> tuple[torch.Tensor, np.ndarray, ChannelReport]:
+        """FedAvg: the server gets `budget` draws with replacement;
+        duplicate sources deliver duplicate packets."""
+        K = packets.shape[0]
+        draws = self.rng.integers(0, K, size=self.budget)
+        distinct = len(set(draws.tolist()))
+        rep = ChannelReport(self.budget, self.budget,
+                            decodable=(distinct == K),
+                            distinct_sources=distinct)
+        return (packets[torch.as_tensor(draws, device=packets.device)],
+                draws, rep)
+
+    def receive_encoded(self, make_coded, K: int, s: int
+                        ) -> tuple[EncodedBatch, ChannelReport]:
+        """FedNC: `make_coded(n)` yields n fresh random coded tuples;
+        the server keeps the `budget` it hears."""
+        batch = make_coded(self.budget)
+        dec = self.budget >= K and rank(get_field(s), batch.A) == K
+        return batch, ChannelReport(self.budget, self.budget, dec)
 
 
 class MultiHopChannel:

@@ -16,10 +16,11 @@ maps FedNCConfig onto an engine and turns decoded packets back into a
 weighted FedAvg aggregate.  `packetize_clients`/`encode_clients` (the
 client side) and `decode_and_aggregate`/`aggregate_decoded` (the server
 side) are the same round cut at the channel, for callers that carry the
-coded tuples themselves.  The reference's `quantize_bits` (lossy int8
-packets) is not ported: every path here is the bit-exact one.  The
-field path is bit-exact and the aggregate sums in the same term order
-as `fedavg_round`, so a decoded FedNC round equals FedAvg on the same
+coded tuples themselves.  With ``quantize_bits`` the clients ship the
+lossy int8 packets of paper ref. [22] (their per-tensor scales travel
+uncoded beside them, as `qspecs`).  Otherwise the field path is
+bit-exact and the aggregate sums in the same term order as
+`fedavg_round`, so a decoded FedNC round equals FedAvg on the same
 clients bit for bit.
 """
 from __future__ import annotations
@@ -43,6 +44,9 @@ class FedNCConfig:
     kernel_impl: str = "auto"  # engine-registry kernel name
     extra_tuples: int = 0      # send K + extra coded tuples (erasure headroom)
     systematic: bool = False   # identity-prefixed coding matrix
+    quantize_bits: int = 0     # 0 = bit-exact float bytes (default);
+    #                            8 = paper-[22] affine int8 packets (4x
+    #                            smaller uploads, lossy)
     coding_density: float = 1.0  # <1.0 = sparse RLNC coefficients
     chunk_l: int = DEFAULT_CHUNK_L  # streamed-chunk symbols (0 = one shot)
 
@@ -79,47 +83,69 @@ def _weighted_sum(w: np.ndarray, xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return acc.to(xs[0].dtype)
 
 
+def packetize_clients(client_params: Sequence[Any], cfg: FedNCConfig,
+                      device="cuda"
+                      ) -> tuple[torch.Tensor, pkt.PacketSpec,
+                                 Optional[list]]:
+    """Head of Alg. 1, also for callers that run their own coded
+    pipeline (e.g. the async strategy): (P, spec, qspecs) on `device`;
+    qspecs is None unless `quantize_bits` is set.  Quantization stays
+    per client (a few Python floats of metadata each); the
+    packetization itself is one batched pass."""
+    engine = engine_for(cfg, device)
+    if not cfg.quantize_bits:
+        P, spec = engine.packetize(client_params)
+        return P, spec, None
+    qtrees, qspecs = zip(*(pkt.quantize_pytree(p, bits=cfg.quantize_bits)
+                           for p in client_params))
+    P, spec = engine.packetize(list(qtrees))
+    return P, spec, list(qspecs)
+
+
 def _aggregate(P_hat: torch.Tensor, spec: pkt.PacketSpec,
-               weights: Sequence[float]) -> Any:
-    """Decoded packets -> weighted FedAvg aggregate (paper §II-A)."""
+               weights: Sequence[float], qspecs: Optional[list] = None
+               ) -> Any:
+    """Decoded packets -> weighted FedAvg aggregate (paper §II-A);
+    quantized packets are dequantized per client first."""
     K = P_hat.shape[0]
     w = np.asarray(weights, np.float32)
     w = w / w.sum()
     stacked = pkt.packets_to_pytrees(P_hat, spec)
+    if qspecs is not None:
+        trees = [pkt.dequantize_pytree(pkt.tree_map(lambda x, k=k: x[k],
+                                                    stacked), qs)
+                 for k, qs in enumerate(qspecs)]
+        return pkt.tree_map(lambda *xs: _weighted_sum(w, xs), *trees)
     return pkt.tree_map(lambda x: _weighted_sum(w, [x[k] for k in range(K)]),
                         stacked)
 
 
-def packetize_clients(client_params: Sequence[Any], cfg: FedNCConfig,
-                      device="cuda") -> tuple[torch.Tensor, pkt.PacketSpec]:
-    """Head of Alg. 1 for callers that run their own coded pipeline:
-    (P, spec) on `device`."""
-    return engine_for(cfg, device).packetize(client_params)
-
-
 def aggregate_decoded(P_hat: torch.Tensor, spec: pkt.PacketSpec,
-                      weights: Sequence[float]) -> Any:
+                      weights: Sequence[float],
+                      qspecs: Optional[list] = None) -> Any:
     """Tail of Alg. 1 for callers that decode their own packets:
     decoded (K, L) symbols -> weighted FedAvg aggregate, the same
-    arithmetic as `fednc_round`."""
-    return _aggregate(P_hat, spec, weights)
+    arithmetic as `fednc_round` (dequantized first when `qspecs`, from
+    `packetize_clients`, is given)."""
+    return _aggregate(P_hat, spec, weights, qspecs)
 
 
 def encode_clients(client_params: Sequence[Any], cfg: FedNCConfig,
                    generator: torch.Generator, device="cuda"
-                   ) -> tuple[EncodedBatch, pkt.PacketSpec]:
+                   ) -> tuple[EncodedBatch, pkt.PacketSpec, Optional[list]]:
     """Packetize and RLNC-encode K client parameter trees on `device`:
-    (batch of K + extra_tuples tuples, spec)."""
+    (batch of K + extra_tuples tuples, spec, qspecs)."""
     engine = engine_for(cfg, device)
-    P, spec = engine.packetize(client_params)
+    P, spec, qspecs = packetize_clients(client_params, cfg, device)
     K = P.shape[0]
     A = engine.coding_matrix(generator, K + cfg.extra_tuples, K)
-    return engine.encode(P, A), spec
+    return engine.encode(P, A), spec, qspecs
 
 
 def decode_and_aggregate(batch: EncodedBatch, spec: pkt.PacketSpec,
                          weights: Sequence[float], prev_global: Any,
-                         cfg: FedNCConfig, device="cuda") -> RoundResult:
+                         cfg: FedNCConfig, qspecs: Optional[list] = None,
+                         device="cuda") -> RoundResult:
     """Server side of Alg. 1: decode (selecting K rows when n > K),
     weighted FedAvg, or skip."""
     K = batch.K
@@ -128,7 +154,8 @@ def decode_and_aggregate(batch: EncodedBatch, spec: pkt.PacketSpec,
     ok, P_hat = engine_for(cfg, device).decode(batch)
     if not ok:
         return RoundResult(prev_global, False, None, 0)
-    return RoundResult(_aggregate(P_hat, spec, weights), True, None, K)
+    return RoundResult(_aggregate(P_hat, spec, weights, qspecs), True,
+                       None, K)
 
 
 def fednc_round(client_params: Sequence[Any], weights: Sequence[float],
@@ -137,12 +164,11 @@ def fednc_round(client_params: Sequence[Any], weights: Sequence[float],
                 device="cuda") -> RoundResult:
     """Full Alg.-1 round on `device`: a thin adapter over
     CodingEngine.round()."""
-    engine = engine_for(cfg, device)
-    P, spec = engine.packetize(client_params)
-    out = engine.round(P, generator, channel=channel)
+    P, spec, qspecs = packetize_clients(client_params, cfg, device)
+    out = engine_for(cfg, device).round(P, generator, channel=channel)
     if not out.ok:
         return RoundResult(prev_global, False, out.report, 0)
-    agg = _aggregate(out.packets, spec, weights)
+    agg = _aggregate(out.packets, spec, weights, qspecs)
     return RoundResult(agg, True, out.report, P.shape[0])
 
 

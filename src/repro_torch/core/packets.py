@@ -6,7 +6,8 @@ a nested dict (or list) of tensors; it flattens in JAX's leaf order
 little-endian bytes in its own layout, so the (K, L) symbol matrix P is
 byte-identical to the reference's for the same parameters.
 `params_from_jax` carries a JAX parameter pytree across (as numpy
-arrays) without touching its layouts or bits.
+arrays) without touching its layouts or bits.  `quantize_pytree` /
+`dequantize_pytree` are the lossy int8 variant (`FedNCConfig.quantize_bits`).
 """
 from __future__ import annotations
 
@@ -203,3 +204,39 @@ def packet_wire_bytes(K: int, payload_symbols: int, s: int,
     """
     header = SEED_WIRE_BYTES if seeded else coding_row_wire_bytes(K, s)
     return header + -(-payload_symbols * s // 8)
+
+
+# ---------------------------------------------------------------------------
+# quantized variant (paper ref [22]: pruning-quantization coding design)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class QuantSpec:
+    scales: tuple[float, ...]
+    zeros: tuple[float, ...]
+
+
+def quantize_pytree(tree, bits: int = 8):
+    """Per-tensor affine quantization to uint8 in [0, 2^bits), in
+    float32 as the reference computes it (round half to even)."""
+    leaves, treedef = tree_flatten(tree)
+    qleaves, scales, zeros = [], [], []
+    qmax = float(2**bits - 1)
+    for leaf in leaves:
+        leaf = leaf.to(torch.float32)
+        lo = torch.min(leaf)
+        hi = torch.max(leaf)
+        scale = torch.clamp((hi - lo) / qmax, min=1e-12)
+        q = torch.clamp(torch.round((leaf - lo) / scale), 0, qmax)
+        qleaves.append(q.to(torch.uint8))
+        scales.append(float(scale))
+        zeros.append(float(lo))
+    return tree_unflatten(treedef, qleaves), QuantSpec(tuple(scales),
+                                                       tuple(zeros))
+
+
+def dequantize_pytree(qtree, qspec: QuantSpec):
+    leaves, treedef = tree_flatten(qtree)
+    out = [q.to(torch.float32) * s + z
+           for q, s, z in zip(leaves, qspec.scales, qspec.zeros, strict=True)]
+    return tree_unflatten(treedef, out)

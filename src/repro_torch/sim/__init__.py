@@ -2,12 +2,17 @@
 
 distributions.py — named delay distributions and the straggler
                    profiles (numpy), which `repro_torch.serve.trace`
-                   draws packet gaps from.  The event simulator itself
-                   is not ported yet.
+                   and the async FL driver draw packet gaps from.
+compute.py       — per-client local-training compute times for the
+                   async arrival clock (`ComputeModel`).
+
+The event simulator itself is not ported yet.
 """
+from .compute import ComputeModel
 from .distributions import (STRAGGLER_PROFILES, DistSpec,
                             available_distributions, register_distribution,
                             sample_delays)
 
-__all__ = ["DistSpec", "STRAGGLER_PROFILES", "available_distributions",
-           "register_distribution", "sample_delays"]
+__all__ = ["ComputeModel", "DistSpec", "STRAGGLER_PROFILES",
+           "available_distributions", "register_distribution",
+           "sample_delays"]

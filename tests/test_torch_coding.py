@@ -453,9 +453,9 @@ def test_encode_clients_and_decode_and_aggregate_equal_fedavg():
     clients = _clients(K, seed=21)
     weights = [1.0, 2.0, 3.0, 4.0]
     cfg = tfednc.FedNCConfig(s=4, extra_tuples=2, chunk_l=64)
-    batch, spec = tfednc.encode_clients(clients, cfg,
-                                        torch.Generator().manual_seed(2),
-                                        device="cpu")
+    batch, spec, qspecs = tfednc.encode_clients(
+        clients, cfg, torch.Generator().manual_seed(2), device="cpu")
+    assert qspecs is None
     assert batch.n == K + 2
     res = tfednc.decode_and_aggregate(batch[torch.tensor([5, 0, 3, 2, 4])],
                                       spec, weights, None, cfg, device="cpu")
@@ -464,7 +464,8 @@ def test_encode_clients_and_decode_and_aggregate_equal_fedavg():
     for a, b in zip(tpackets.tree_flatten(res.global_params)[0],
                     tpackets.tree_flatten(want)[0], strict=True):
         assert torch.equal(a, b)
-    P, spec2 = tfednc.packetize_clients(clients, cfg, device="cpu")
+    P, spec2, qspecs = tfednc.packetize_clients(clients, cfg, device="cpu")
+    assert qspecs is None
     agg = tfednc.aggregate_decoded(P, spec2, weights)
     for a, b in zip(tpackets.tree_flatten(agg)[0],
                     tpackets.tree_flatten(want)[0], strict=True):
