@@ -81,7 +81,34 @@ failing on the first wrong result:
    network's, which is positive.  Per run it prints the decode
    failures beside `error_probability_bound(s, eta)`, the accuracy,
    the mean round wall, local training's share of it and the
-   aggregation's synchronized ms, then profiles one FedNC s = 8 round.
+   aggregation's synchronized ms, then profiles one FedNC s = 8 round;
+10. the scenario grid, the adversary and the network simulator (after
+   phase 9): (a) the port's smoke grid (10 cells) through the CLI's
+   `main` (`--smoke --device cuda --jobs 1`) into a temporary
+   directory: its 4 simulator cells must equal the committed
+   `GRID_smoke.json` in every field but `wall_s` and `per_stage`, its 6
+   engine cells (`cuda_packed`, `cuda_packed_seeded`; none, eavesdrop,
+   byzantine) the same grid on the CPU in every field but the timings
+   and `GRID_smoke.json` in the fields that do not depend on the coding
+   draws, no byzantine decode may be accepted corrupted, the packed and
+   seeded kernels must be launched and `check_grid_smoke` of
+   `scripts/check_bench.py` must pass; (b) `hier:2` on `cuda` under
+   `eavesdrop:0.5` at s = 8 (the unpacked kernel) and s = 1 (the XOR
+   kernel), each equal to its CPU run with the rank wall holding, and
+   one `async_compute` cell (Pareto gaps, 2 rounds) whose coupled clock
+   dominates and whose consumed count lies in [K, budget]; (c) at the
+   CNN's width (K = 10, 2 extra tuples, `cuda_packed_seeded`) the
+   `rlnc` function API against the engine, `EavesdropperView` (p = 0.6;
+   seed headers and their rows give the same view) and
+   `Eavesdropper.attack_encoded` on the round's rows, and
+   `replayed_seed_batch(batch, 3)` into `StreamDecoder(detect=True)`:
+   3 inconsistent arrivals and a decode equal to P; (d)
+   `NetworkSimulator` at `examples/sim_scale.py`'s default scale (10^6
+   clients, K = 64, 100 rounds, lognormal and Pareto gaps, the stream
+   decoder) must equal `tests/data/sim_scale_reference.json`, the
+   reference's summaries: counts and rates exactly, the simulated
+   clock's fields within 1e-13 relative (numpy builds differ in the
+   last bit of a mean over 10^6 clients); it prints the host wall.
 
 Phase 1 also holds the packed kernel's batched instance against its
 plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
@@ -98,8 +125,8 @@ tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
 and global loads by width; the selects per word and packet row) and the
 count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
-Each of phases 2-9 (each run of phase 9) drives the main path with every launch count set to
-0 just before it and read just after, and fails if a kernel of that
+Each of phases 2-10 (each run of phase 9) drives the main path with every
+launch count set to 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
 one prefill and one serve step with torch.profiler (device busy share, device time per
 kernel), times each GF kernel and its plain version at the chunk shape
@@ -111,7 +138,7 @@ kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-9), error, time, plain time and bound.  The last line is
+2-10), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -208,6 +235,27 @@ FL_ROUNDS = 3
 FL_LR = 2e-3                     # adam
 FL_ETA = 100                     # recoding hops of the multi-hop run
 SEED_FL = 0                      # rounds' numpy generator and initial CNN
+# phase 10: the scenario grid, the adversary and the network simulator.
+# (b)'s cells take the smoke grid's K = 32 and base seed; their rows are
+# host draws, so which rounds decode is as on the CPU (s = 1: 3 of 4).
+GRID_HIER_ROUNDS = 4
+GRID_ASYNC_ROUNDS = 2
+GRID_TIMINGS = ("wall_s", "per_stage", "wall_s_per_round")
+GRID_STRUCTURAL = ("payload_symbols", "seeded", "wire_bytes_per_packet",
+                   "wire_bytes_per_round", "wire_overhead_ratio",
+                   "leak_probability_closed_form")
+ADV_EXTRA = 2                    # (c): tuples beyond K
+ADV_P = 0.6                      # (c): per-tuple interception probability
+ADV_REPLAYS = 3                  # (c): replayed seed headers
+SEED_ADV = 12                    # (c): row seeds, coin flips and replays
+SIM_SCALE = ROOT / "tests" / "data" / "sim_scale_reference.json"
+# (d): counts and rates must equal the fixture exactly.  The simulated
+# clock's fields (time_*) are sums of ~300 gaps scaled by slowness
+# factors normalized by a mean over 10^6 clients, and numpy builds differ
+# in the last bit of such reductions (numpy 2.3.5 on an H100 host against
+# the fixture's 2.0.2: at most 8.415e-16 relative), so they are held
+# within a few hundred ulps
+SIM_CLOCK_RTOL = 1e-13
 # (d): one SGD step on the card and on the CPU, both full float32 (the
 # trainer turns TF32 off).  At lr 0.1 a weight moves by ~1e-2, so a
 # TF32 product (~1e-3 relative) would move it by ~1e-5, far past atol.
@@ -1516,6 +1564,222 @@ def phase9(wrappers, runs: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the scenario grid, the adversary and the network simulator
+# ---------------------------------------------------------------------------
+
+def load_check_bench():
+    """`scripts/check_bench.py` (standard library only), loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_bench", ROOT / "scripts" / "check_bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def without(entry: dict, keys) -> dict:
+    return {k: v for k, v in entry.items() if k not in keys}
+
+
+def launched(wrappers, before: dict) -> dict[str, int]:
+    """Launches of each kernel since `before` (a `launch_counts`)."""
+    return {k: v - before[k] for k, v in launch_counts(wrappers).items()}
+
+
+def phase10_grid(wrappers) -> None:
+    """(a): the smoke grid through the CLI on the card, against the same
+    grid on the CPU and the committed `GRID_smoke.json`."""
+    import tempfile
+
+    from repro_torch.grid import __main__ as grid_cli
+    from repro_torch.grid import run_grid
+
+    t0 = time.perf_counter()
+    before = launch_counts(wrappers)
+    with tempfile.TemporaryDirectory() as tmp:
+        check(grid_cli.main(["--smoke", "--device", "cuda", "--jobs", "1",
+                             "--outdir", tmp]) == 0, "phase 10: grid CLI")
+        doc = json.loads((pathlib.Path(tmp) / "GRID_torch_smoke.json")
+                         .read_text())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launched(wrappers, before)
+    cells = doc["scenarios"]
+    committed = json.loads((ROOT / "GRID_smoke.json").read_text())[
+        "scenarios"]
+    cpu = run_grid(grid_cli.smoke_axes().expand(), jobs=1, device="cpu")
+    check(len(cells) == len(committed) == 10,
+          f"phase 10 (a): {len(cells)} cells, GRID_smoke.json has "
+          f"{len(committed)}")
+    for (name, got), ref_name in zip(cells.items(), committed, strict=True):
+        want = committed[ref_name]
+        if got["axes"]["strategy"] != "engine":
+            check(name == ref_name and without(got, GRID_TIMINGS)
+                  == without(want, GRID_TIMINGS),
+                  f"phase 10 (a): {name} != GRID_smoke.json's {ref_name}")
+            continue
+        check(without(got, GRID_TIMINGS) == without(cpu[name],
+                                                    GRID_TIMINGS),
+              f"phase 10 (a): {name} on the card != on the CPU")
+        for key in GRID_STRUCTURAL:
+            check(got.get(key) == want.get(key),
+                  f"phase 10 (a): {name} {key} {got.get(key)} != "
+                  f"GRID_smoke.json's {want.get(key)}")
+        check(got.get("undetected_bad_decodes", 0) == 0,
+              f"phase 10 (a): {name} accepted a corrupted decode")
+        print(f"phase 10 (a): {name}: decode_rate {got['decode_rate']} "
+              f"wall/round {got['wall_s_per_round'] * 1e3:.3f} ms"
+              + "".join(f" {k} {got[k]}" for k in (
+                  "eavesdrop_rank_mean", "full_leak_rate",
+                  "detection_rate", "rounds_to_recovery_mean") if k in got))
+    for k in ("gf_matmul_packed", "gf_matmul_packed_seeded"):
+        check(counts[k] > 0, f"phase 10 (a): {k} was not launched")
+    errors = load_check_bench().check_grid_smoke("GRID_torch_smoke.json",
+                                                 doc)
+    check(not errors, f"phase 10 (a): check_grid_smoke: {errors}")
+    print(f"phase 10 (a): smoke grid 10 cells on the card in {wall:.3f} s "
+          f"(CLI, jobs 1): 4 simulator cells == GRID_smoke.json, 6 engine "
+          f"cells == the CPU's and structurally == GRID_smoke.json, "
+          f"check_grid_smoke ok; launches {counts}")
+
+
+def phase10_cells(wrappers) -> None:
+    """(b): `hier:2` with `cuda` under `eavesdrop:0.5` at s = 8 and s = 1,
+    and one `async_compute` cell, through `run_scenario`."""
+    from repro_torch.grid import GridAxes, run_scenario
+
+    for s, kernel in ((8, "gf_matmul_unpacked"), (1, "gf2_matmul")):
+        spec = GridAxes(strategy=("hier:2",), kernel=("cuda",),
+                        adversary=("eavesdrop:0.5",), clients_per_round=32,
+                        rounds=GRID_HIER_ROUNDS, s=s, base_seed=7
+                        ).expand()[0]
+        before = launch_counts(wrappers)
+        got = run_scenario(spec, device="cuda")
+        torch.cuda.synchronize()
+        counts = launched(wrappers, before)
+        want = run_scenario(spec, device="cpu")
+        check(without(got, GRID_TIMINGS) == without(want, GRID_TIMINGS),
+              f"phase 10 (b): {spec.name} s={s} on the card != on the CPU")
+        check(got["rank_wall_holds"] is True,
+              f"phase 10 (b): {spec.name} s={s}: the rank wall broke")
+        check(got["decode_rate"] > 0 and counts[kernel] > 0,
+              f"phase 10 (b): {spec.name} s={s} launched no {kernel}")
+        print(f"phase 10 (b): {spec.name} s={s}: decode_rate "
+              f"{got['decode_rate']} (== CPU), rank_wall_holds, tapped "
+              f"{got['tapped_edges_mean']} of 2 edges, attacker rank "
+              f"{got['eavesdrop_rank_mean']} of 32, wall/round "
+              f"{got['wall_s_per_round'] * 1e3:.3f} ms; {kernel} "
+              f"launches {counts[kernel]}")
+    spec = GridAxes(strategy=("async_compute",), straggler=("pareto",),
+                    clients_per_round=32, rounds=GRID_ASYNC_ROUNDS,
+                    base_seed=7).expand()[0]
+    got = run_scenario(spec, device="cuda")
+    K = min(spec.clients_per_round, 8)
+    check(got["compute_dominates"] is True,
+          f"phase 10 (b): {spec.name}: the coupled clock does not dominate")
+    check(K <= got["consumed_mean"] <= got["budget"],
+          f"phase 10 (b): {spec.name}: consumed {got['consumed_mean']} "
+          f"outside [{K}, {got['budget']}]")
+    print(f"phase 10 (b): {spec.name}: decode_rate {got['decode_rate']} "
+          f"consumed {got['consumed_mean']} of {got['budget']}, sim_time "
+          f"{got['sim_time_mean']:.3f} > network {got['sim_time_network_mean']:.3f}"
+          f", loss {got['final_train_loss']:.4f}, wall {got['wall_s']:.3f} s")
+
+
+def phase10_adversary(clients) -> None:
+    """(c): the eavesdroppers and the replay attack on one seeded round
+    of the CNN clients."""
+    from repro_torch.adversary import EavesdropperView, replayed_seed_batch
+    from repro_torch.core import rlnc
+    from repro_torch.core.channel import Eavesdropper
+    from repro_torch.engine import CodingEngine, EngineConfig
+    from repro_torch.engine.stream import StreamDecoder
+
+    eng = CodingEngine(EngineConfig(s=8, kernel="cuda_packed_seeded",
+                                    extra_tuples=ADV_EXTRA), device="cuda")
+    P, _ = eng.packetize(clients)
+    K, L = P.shape
+    seeds = eng.coding_seeds(torch.Generator().manual_seed(SEED_ADV),
+                             K + ADV_EXTRA)
+    batch = eng.encode_seeded(P, seeds)
+    check(torch.equal(rlnc.encode_seeded(P, seeds, 8).C, batch.C),
+          "phase 10 (c): rlnc.encode_seeded != the engine's encode")
+    ok, sel = rlnc.select_rows(batch.expand(8), 8)
+    dec_ok, P_hat = rlnc.decode(sel, 8)
+    check(ok and dec_ok and torch.equal(P_hat, P),
+          "phase 10 (c): rlnc.decode of the round != P")
+    view = EavesdropperView(K=K, s=8, seed=SEED_ADV, p_intercept=ADV_P)
+    view.intercept(batch.seeds)
+    rows_view = EavesdropperView(K=K, s=8, seed=SEED_ADV, p_intercept=ADV_P)
+    rows_view.intercept(eng.expand_seeds(seeds, K))
+    check(view.report() == rows_view.report(),
+          "phase 10 (c): seed headers and rows gave different views")
+    one_shot = Eavesdropper(ADV_P, seed=SEED_ADV).attack_encoded(
+        batch.expand(8), 8)
+    print(f"phase 10 (c): K={K} L={L} {K + ADV_EXTRA} seeded tuples, "
+          f"p={ADV_P}: EavesdropperView {view.report()}; Eavesdropper "
+          f"{one_shot}")
+    attacked = replayed_seed_batch(batch, ADV_REPLAYS, s=8, seed=SEED_ADV)
+    dec = StreamDecoder(K, L, s=8, detect=True, device="cuda")
+    dec.ingest(attacked.seeds, attacked.C)
+    ok, P_hat = dec.decode()
+    torch.cuda.synchronize()
+    check(dec.inconsistent == ADV_REPLAYS,
+          f"phase 10 (c): {dec.inconsistent} inconsistent arrivals, "
+          f"{ADV_REPLAYS} replayed")
+    check(ok and torch.equal(P_hat, P),
+          "phase 10 (c): the replayed stream's decode != P")
+    print(f"phase 10 (c): {ADV_REPLAYS} replayed seed headers: "
+          f"inconsistent {dec.inconsistent}, first at "
+          f"{dec.first_inconsistent_at}, decoded at {dec.decoded_at}, "
+          f"decode == P")
+
+
+def phase10_sim() -> None:
+    """(d): `NetworkSimulator` at `examples/sim_scale.py`'s default scale
+    against the reference's summaries (host work: a rank-only decoder)."""
+    from repro_torch.sim import (STRAGGLER_PROFILES, NetworkSimulator,
+                                 PopulationConfig, SimConfig)
+
+    fixture = json.loads(SIM_SCALE.read_text())
+    scale = fixture["config"]
+    for straggler, want in fixture["summaries"].items():
+        cfg = SimConfig(population=PopulationConfig(
+            n_clients=scale["n_clients"]),
+            clients_per_round=scale["clients_per_round"],
+            gap=STRAGGLER_PROFILES[straggler], decoder="stream",
+            seed=scale["seed"])
+        t0 = time.perf_counter()
+        got = NetworkSimulator(cfg).run(scale["rounds"]).summary()
+        wall = time.perf_counter() - t0
+        check(got.keys() == want.keys() and all(
+            got[k] == want[k] for k in want if not k.startswith("time_")),
+            f"phase 10 (d): {straggler}: {got} != the reference's {want}")
+        rel = max(abs(got[k] - want[k]) / abs(want[k])
+                  for k in want if k.startswith("time_"))
+        check(rel <= SIM_CLOCK_RTOL,
+              f"phase 10 (d): {straggler}: clock fields {rel:.3e} "
+              f"from the reference's: {got} != {want}")
+        print(f"phase 10 (d): NetworkSimulator {scale['n_clients']} "
+              f"clients K={scale['clients_per_round']} "
+              f"{scale['rounds']} rounds {straggler}: == "
+              f"{SIM_SCALE.name} (clock fields within {rel:.3e}, numpy "
+              f"{np.__version__}); "
+              f"draw_ratio {got['draw_ratio']:.4f} "
+              f"time_speedup {got['time_speedup']:.4f}; host wall "
+              f"{wall:.3f} s")
+
+
+def phase10(wrappers, clients) -> None:
+    t0 = time.perf_counter()
+    phase10_grid(wrappers)
+    phase10_cells(wrappers)
+    phase10_adversary(clients)
+    phase10_sim()
+    print(f"phase 10: {time.perf_counter() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
 # where a round's time goes: one traced round per 500M configuration
 # ---------------------------------------------------------------------------
 
@@ -1864,11 +2128,15 @@ def main() -> None:
                            lambda: phase7(fa, cfg, params, prompt))
     runs.append((counts7, None))
     phase9(wrappers, runs)
+    runs.append(main_path("phase 10", wrappers,
+                          ("gf_matmul_packed", "gf_matmul_packed_seeded",
+                           "gf_matmul_unpacked", "gf2_matmul"),
+                          lambda: phase10(wrappers, cnn[1])))
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-9)")
+          + " (phases 2-10)")
     trace_serving(cfg, params, prompt)
     del params, prompt
     torch.cuda.empty_cache()

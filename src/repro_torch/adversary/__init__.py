@@ -1,13 +1,31 @@
-"""repro_torch.adversary — the paper's "Secure" claim, active side.
+"""repro_torch.adversary — the paper's "Secure" claim as executable models.
 
+The port of `repro.adversary`:
+
+spec.py      — AdversarySpec: the grid axis value
+               (``none`` / ``eavesdrop:p`` / ``collude:c`` /
+               ``byzantine:b``) parsed in one place.
+eavesdrop.py — EavesdropperView: a passive attacker's accumulated
+               knowledge as reduced-basis state (achieved rank,
+               residual entropy, sources recovered), plus edge-link
+               capture for hierarchical cells.
 byzantine.py — ByzantineChannel: active corruption as a RowTamper
-               channel plan (flip / forge / both) with its stage-wise
-               oracle, `apply_tamper`, and `rounds_to_recovery` against
-               the engine's redundant-rank cross-check.
+               channel plan (flip / forge / both), replayed-seed
+               batches for the stream path, and the rounds-to-recovery
+               measurement against the engine's redundant-rank
+               cross-check.
 
-The port of `repro.adversary.byzantine`; the eavesdropper views and
-replayed-seed batches (which need `StreamDecoder`) are not ported yet.
+Closed forms live in `repro_torch.core.security`; the grid's
+``adversary`` axis (`repro_torch.grid`) reports the measured
+counterparts per cell.
 """
-from .byzantine import MODES, ByzantineChannel, apply_tamper, rounds_to_recovery
+from .byzantine import (MODES, ByzantineChannel, apply_tamper,
+                        replayed_seed_batch, rounds_to_recovery)
+from .eavesdrop import EavesdropperView, edge_row_slices, tap_edges
+from .spec import KINDS, AdversarySpec
 
-__all__ = ["ByzantineChannel", "MODES", "apply_tamper", "rounds_to_recovery"]
+__all__ = [
+    "AdversarySpec", "KINDS", "EavesdropperView", "edge_row_slices",
+    "tap_edges", "ByzantineChannel", "MODES", "apply_tamper",
+    "replayed_seed_batch", "rounds_to_recovery",
+]

@@ -18,6 +18,13 @@ noise) in both packages.  Detection is the redundant-rank cross-check
 (`CodingEngine.decode_verified`, ``round(verify=True)``), and
 :func:`rounds_to_recovery` measures how many retries a server needs
 until a decode passes it.
+
+Replayed seeds — the seeded wire format's own attack, where an old
+4-byte header is re-sent with a different payload — are not a per-row
+XOR (the forged row duplicates another transmitted row), so they are
+modeled on the stream path instead: :func:`replayed_seed_batch` builds
+the attack batch, and the server's `StreamDecoder` flags every replay
+as an inconsistent dependent arrival.
 """
 from __future__ import annotations
 
@@ -99,6 +106,27 @@ def apply_tamper(batch, plan: RowTamper, s: int) -> EncodedBatch:
                 seedlib.as_seeds(plan.payload_seeds, C.device),
                 int(C.shape[1]), s)
     return EncodedBatch(A=A, C=C)
+
+
+def replayed_seed_batch(batch: SeededBatch, count: int, s: int = 8,
+                        seed: int = 0) -> SeededBatch:
+    """Append `count` replayed tuples to a seeded batch: each re-sends
+    the 4-byte header of a random earlier tuple with a fresh garbage
+    payload.  The replayed rows are exact duplicates in the row space,
+    so every one of them reaches the server's basis as a *dependent*
+    arrival with a mismatched payload — the precise signature
+    `StreamDecoder` counts in ``inconsistent``.  The picks and the
+    garbage are the reference's numpy draws; seeds and payloads stay on
+    the batch's devices."""
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, batch.n, size=int(count))
+    seeds = batch.seeds
+    seeds2 = torch.cat([seeds, seeds[torch.as_tensor(pick,
+                                                     device=seeds.device)]])
+    L = int(batch.C.shape[1])
+    junk = rng.integers(0, 2**s, size=(int(count), L)).astype(np.uint8)
+    C2 = torch.cat([batch.C, torch.from_numpy(junk).to(batch.C.device)])
+    return SeededBatch(seeds=seeds2, C=C2, K=batch.K)
 
 
 def rounds_to_recovery(engine, P: torch.Tensor, generator: torch.Generator,

@@ -8,6 +8,9 @@ The port of `repro.core.channel`'s coding channels:
                       sampling with replacement (Prop. 1 setting).
 * `MultiHopChannel` — η network-interior links each re-code the stream
                       with fresh random coefficients (Prop. 2's η).
+* `Eavesdropper`    — intercepts each transmitted tuple with
+                      probability p; succeeds iff its intercepted
+                      coding matrix reaches rank K (security claim).
 
 An async server reads arrivals in the order of an `ArrivalSchedule`
 and reports the simulated clock in an `AsyncChannelReport`.
@@ -247,3 +250,42 @@ class MultiHopChannel:
         out = engine.recode_with(R_comp, batch)
         dec = rank(get_field(s), out.A) == batch.K
         return out, ChannelReport(batch.n, out.n, dec)
+
+
+class Eavesdropper:
+    """Intercepts each tuple independently with probability p_intercept.
+
+    * FedNC: learns nothing unless the intercepted coding matrix has
+      rank K (then it can run the same GE the server runs).
+    * FedAvg baseline: every intercepted packet IS a client's model —
+      leak count = number of interceptions.
+
+    The coin flips come from the reference's numpy stream, so the same
+    batch and seed give the same report.
+    """
+
+    def __init__(self, p_intercept: float, seed: int = 0):
+        self.p = float(p_intercept)
+        self.rng = np.random.default_rng(seed)
+
+    def attack_encoded(self, batch: EncodedBatch, s: int) -> dict:
+        got = self.rng.random(batch.n) < self.p
+        idx = np.nonzero(got)[0]
+        if len(idx) == 0:
+            return {"intercepted": 0, "rank": 0, "full_leak": False,
+                    "partial_leak_packets": 0}
+        r = rank(get_field(s), batch.A.cpu()[torch.as_tensor(idx)])
+        full = r == batch.K
+        return {
+            "intercepted": int(len(idx)),
+            "rank": r,
+            "full_leak": bool(full),
+            # under RLNC nothing decodes before full rank
+            "partial_leak_packets": batch.K if full else 0,
+        }
+
+    def attack_plain(self, n_packets: int) -> dict:
+        got = int((self.rng.random(n_packets) < self.p).sum())
+        return {"intercepted": got, "rank": got,
+                "full_leak": got == n_packets,
+                "partial_leak_packets": got}

@@ -6,8 +6,10 @@ a nested dict (or list) of tensors; it flattens in JAX's leaf order
 little-endian bytes in its own layout, so the (K, L) symbol matrix P is
 byte-identical to the reference's for the same parameters.
 `params_from_jax` carries a JAX parameter pytree across (as numpy
-arrays) without touching its layouts or bits.  `quantize_pytree` /
-`dequantize_pytree` are the lossy int8 variant (`FedNCConfig.quantize_bits`).
+arrays) without touching its layouts or bits.  `pack_seed_packet` /
+`unpack_seed_packet` are the seeded wire format (4 seed bytes, then the
+payload).  `quantize_pytree` / `dequantize_pytree` are the lossy int8
+variant (`FedNCConfig.quantize_bits`).
 """
 from __future__ import annotations
 
@@ -131,6 +133,59 @@ def symbols_to_bytes(sym: torch.Tensor, s: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# one tree <-> one packet
+# ---------------------------------------------------------------------------
+
+def _leaf_to_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's raw little-endian bytes, in its own layout."""
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _bytes_to_leaf(b: torch.Tensor, shape, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """A leaf from its bytes; a copy, since a slice of the packet may
+    not be aligned to the dtype's width."""
+    return b.clone().view(dtype).reshape(shape)
+
+
+def pytree_to_packet(tree, s: int = 8) -> tuple[torch.Tensor, PacketSpec]:
+    """Flatten a tree into one GF(2^s) symbol packet (bit-exact)."""
+    leaves, treedef = tree_flatten(tree)
+    chunks = [_leaf_to_bytes(leaf) for leaf in leaves]
+    b = (torch.cat(chunks) if chunks
+         else torch.zeros((0,), dtype=torch.uint8))
+    spec = PacketSpec(
+        treedef=treedef,
+        shapes=tuple(tuple(leaf.shape) for leaf in leaves),
+        dtypes=tuple(leaf.dtype for leaf in leaves),
+        s=s,
+        n_bytes=int(b.shape[0]),
+    )
+    return bytes_to_symbols(b, s), spec
+
+
+def packet_to_pytree(packet: torch.Tensor, spec: PacketSpec):
+    """Reassemble the tree from a symbol packet (bit-exact inverse)."""
+    b = symbols_to_bytes(packet, spec.s)[: spec.n_bytes]
+    leaves = []
+    off = 0
+    for shape, dtype in zip(spec.shapes, spec.dtypes, strict=True):
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        leaves.append(_bytes_to_leaf(b[off: off + nbytes], shape, dtype))
+        off += nbytes
+    return tree_unflatten(spec.treedef, leaves)
+
+
+def stack_packets(packets: list[torch.Tensor]) -> torch.Tensor:
+    """K same-length packets -> P matrix (K, L) for RLNC (paper eq. P)."""
+    L = packets[0].shape[0]
+    for p in packets:
+        if tuple(p.shape) != (L,):
+            raise ValueError("all client packets must have equal length")
+    return torch.stack(packets, dim=0)
+
+
+# ---------------------------------------------------------------------------
 # batched packetization (K clients -> one (K, L) matrix)
 # ---------------------------------------------------------------------------
 
@@ -204,6 +259,26 @@ def packet_wire_bytes(K: int, payload_symbols: int, s: int,
     """
     header = SEED_WIRE_BYTES if seeded else coding_row_wire_bytes(K, s)
     return header + -(-payload_symbols * s // 8)
+
+
+def pack_seed_packet(seed, payload: torch.Tensor, s: int) -> torch.Tensor:
+    """Serialize one seeded tuple: 4 seed bytes (little-endian), then
+    the payload bytes, on the payload's device."""
+    value = int(seed) & 0xFFFFFFFF
+    head = torch.tensor([(value >> (8 * i)) & 0xFF
+                         for i in range(SEED_WIRE_BYTES)],
+                        dtype=torch.uint8, device=payload.device)
+    return torch.cat([head, symbols_to_bytes(payload.to(torch.uint8), s)])
+
+
+def unpack_seed_packet(buf: torch.Tensor, s: int
+                       ) -> tuple[int, torch.Tensor]:
+    """Inverse of :func:`pack_seed_packet`: (seed, payload symbols);
+    the seed is a Python int holding the 32-bit value."""
+    buf = torch.as_tensor(buf, dtype=torch.uint8)
+    head = buf[:SEED_WIRE_BYTES].cpu().tolist()
+    seed = sum(int(v) << (8 * i) for i, v in enumerate(head))
+    return seed, bytes_to_symbols(buf[SEED_WIRE_BYTES:], s)
 
 
 # ---------------------------------------------------------------------------

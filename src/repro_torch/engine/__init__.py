@@ -11,6 +11,8 @@ select.py   — incremental-GE independent-row selector (`reduce_row`,
 stream.py   — StreamDecoder / DecoderBank / stream_decode: the
               per-arrival decoder, row space on the host, payload row
               operations in the packed kernel on the card.
+rowtime.py  — host time per row of the reduced-basis step
+              (``python -m repro_torch.engine.rowtime``).
 """
 from .engine import (DEFAULT_CHUNK_L, CodingEngine, EngineConfig,
                      EngineRound, get_engine, resolve_device)

@@ -49,7 +49,8 @@ card in the hand-written packed GF kernel:
   (``valid=False``) become zero coefficient rows, which are no-ops, as
   in the reference's `_bank_fns`.
 
-``L = 0`` tracks the rank alone and launches nothing.  The rows reach
+``L = 0`` tracks the rank alone and launches nothing: its plans reduce
+B alone (a zero-width T).  The rows reach
 the host as they are; every payload buffer lies on ``device`` (the card
 unless the caller asks for the CPU, where the kernel wrappers run their
 plain versions).
@@ -98,26 +99,34 @@ class _BlockPlan:
     differs from [I | 0]), ``ranks`` (g,) the rank after each arrival,
     and — with ``tripwire`` — ``dependent`` (d,) the positions of the
     dependent arrivals and ``R`` (d, K + g) their payload residuals.
+    A rank-only plan (``payload=False``) reduces B alone: T and R are
+    zero-width.
     """
 
-    def __init__(self, field, B, filled, rows, tripwire: bool):
+    def __init__(self, field, B, filled, rows, tripwire: bool,
+                 payload: bool = True):
         K = B.shape[0]
         g = rows.shape[0]
-        T = torch.zeros((K, K + g), dtype=torch.uint8)
-        T[:, :K] = torch.eye(K, dtype=torch.uint8)
+        w = K + g if payload else 0
+        B, filled = B.numpy().copy(), filled.numpy().copy()
+        rows = rows.numpy()
+        T = np.zeros((K, w), np.uint8)
+        if payload:
+            T[:, :K] = np.eye(K, dtype=np.uint8)
         self.ranks = np.zeros((g,), np.int32)
         self.moved = False
         dependent, resid = [], []
         rank = int(filled.sum())
         for i in range(g):
             a = rows[i]
-            if not tripwire and not bool(a.any()):
+            if not tripwire and not a.any():
                 self.ranks[i] = rank          # a zero row changes nothing
                 continue
-            unit = torch.zeros((K + g,), dtype=torch.uint8)
-            unit[K + i] = 1
+            unit = np.zeros((w,), np.uint8)
+            if payload:
+                unit[K + i] = 1
             red_a, red_t = reduce_row(field, B, T, filled, a, unit)
-            if bool(red_a.any()):
+            if red_a.any():
                 B, T, filled = insert_row(field, B, T, filled, red_a, red_t)
                 self.moved = True
                 rank += 1
@@ -125,10 +134,11 @@ class _BlockPlan:
                 dependent.append(i)
                 resid.append(red_t)
             self.ranks[i] = rank
-        self.B, self.filled, self.T = B, filled, T
+        self.B, self.filled = torch.from_numpy(B), torch.from_numpy(filled)
+        self.T = torch.from_numpy(T)
         self.dependent = np.asarray(dependent, np.int64)
-        self.R = (torch.stack(resid) if resid
-                  else torch.zeros((0, K + g), dtype=torch.uint8))
+        self.R = torch.from_numpy(np.stack(resid) if resid
+                                  else np.zeros((0, w), np.uint8))
 
 
 class StreamDecoder:
@@ -245,7 +255,7 @@ class StreamDecoder:
         """One block: the host plan, then the launch.  Returns the rank
         trajectory and the (g,) tripwire flags."""
         plan = _BlockPlan(self.field, self._B, self._filled, rows,
-                          tripwire=True)
+                          tripwire=bool(self.L), payload=bool(self.L))
         flags = self._launch(plan, C)
         self._B, self._filled = plan.B, plan.filled
         bads = np.zeros((rows.shape[0],), bool)
@@ -515,7 +525,8 @@ class DecoderBank:
         for j in range(J):
             if batched or work[j]:
                 plans[j] = _BlockPlan(self.field, self._B[j],
-                                      self._filled[j], a[j], tripwire=False)
+                                      self._filled[j], a[j], tripwire=False,
+                                      payload=bool(self.L))
                 ranks[j] = plans[j].ranks
         C = _payload(C)
         if batched:
