@@ -109,6 +109,29 @@ failing on the first wrong result:
    reference's summaries: counts and rates exactly, the simulated
    clock's fields within 1e-13 relative (numpy builds differ in the
    last bit of a mean over 10^6 clients); it prints the host wall.
+11. FL-LM training (after phase 10, on phase 7's weights cut to their
+   first 18 of 36 layers; the rest are freed): (a) at phase 7's
+   attention shape (4, 2,048, 32, 8, 128) and at the training run's
+   per-client shape (2, 1,024, 32, 8, 128), in bf16 and float32, the
+   flash Function's output must equal the kernel's and
+   `flash_attention_ref` within the flash tolerance, and its dq, dk, dv
+   the float32 autograd through `_attend` on the same values (rtol =
+   atol = 2e-4; bf16 rtol 1e-2, atol 1e-3), and one loss through `forward_hidden` of the full-width
+   model must give every attention parameter of every layer a finite,
+   non-zero gradient; (b) at Qwen3-4B's full width, K = 4 clients of a
+   global batch of 8 x 1,024 tokens from `make_token_stream(seed=0)`:
+   one per-client gradient stack through `plain`, `fednc_naive` and
+   `fednc_blocked` (synchronized ms), each coded mean equal to the
+   plain one within the reference's bound (rtol 2e-2, atol 2e-3), then
+   3 steps of `fednc_blocked` through `launch.train`'s loop (adamw,
+   remat): finite losses and exactly 2 flash launches per layer per
+   client per step (the forward and the remat recompute); it prints the
+   step walls, tokens/s (all tokens over all steps after the first,
+   and each such step's) and `max_memory_allocated`, and profiles one
+   more step, timing each flash backward in it with CUDA events; (c) one float32 step of the reduced Qwen3-4B on the card
+   and on the CPU: per-client and aggregated gradients within rtol 1e-4
+   plus 1e-5 of each leaf's scale; (d) `save_pytree` / `load_pytree` of
+   the trained parameters must round-trip bit for bit on the card.
 
 Phase 1 also holds the packed kernel's batched instance against its
 plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
@@ -125,7 +148,8 @@ tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
 and global loads by width; the selects per word and packet row) and the
 count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
-Each of phases 2-10 (each run of phase 9) drives the main path with every
+Each of phases 2-11 (each run of phase 9; phase 11's training run)
+drives the main path with every
 launch count set to 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
 one prefill and one serve step with torch.profiler (device busy share, device time per
@@ -138,13 +162,14 @@ kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-10), error, time, plain time and bound.  The last line is
+2-11), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -249,6 +274,31 @@ ADV_P = 0.6                      # (c): per-tuple interception probability
 ADV_REPLAYS = 3                  # (c): replayed seed headers
 SEED_ADV = 12                    # (c): row seeds, coin flips and replays
 SIM_SCALE = ROOT / "tests" / "data" / "sim_scale_reference.json"
+# phase 11: FL-LM training (examples/train_fl_lm.py -> launch.train) at
+# Qwen3-4B's full width.  Depth is cut to 18 of 36 layers: per parameter
+# the step keeps 2 B of bf16 weight, 8 B of float32 Adam moments and
+# 2·K = 8 B of the per-client bf16 gradient stack, 79.4 GB at 36 layers
+# before any temporary, 46.6 GB at 18 (PERF.md §4)
+TRAIN_LAYERS = 18
+TRAIN_CLIENTS = 4                # train.py's default K
+TRAIN_BATCH = 8                  # global batch, split over the clients
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 3
+TRAIN_AGG = "fednc_blocked"      # train.py's default
+TRAIN_LR = 3e-4                  # train.py's default
+SEED_MIX = 21                    # host generator of the mixing matrices
+SEED_F1 = 3                      # (a): q, k, v and dO
+# (b): a coded mean against the plain one, the reference's own bound for
+# its aggregation modes (tests/test_system.py:129-134)
+AGG_TOL = {"rtol": 2e-2, "atol": 2e-3}
+# (c): the card's float32 gradients against the CPU's.  Two float32
+# programs that sum in other orders (the card's flash kernel and cuBLAS,
+# TF32 off, against the CPU's tiles and BLAS): held as the CPU tests hold
+# the port to the reference's float32 gradients (tests/test_torch_train.py
+# F32_GRAD, measured there at most 3.1e-6 of a leaf's largest gradient):
+# |card - cpu| <= rtol·|cpu| + scale·max|cpu| per leaf
+GRAD_TOL = {"rtol": 1e-4, "scale": 1e-5}
+REDUCED_BATCH, REDUCED_SEQ = 8, 64
 # (d): counts and rates must equal the fixture exactly.  The simulated
 # clock's fields (time_*) are sums of ~300 gaps scaled by slowness
 # factors normalized by a mean over 10^6 clients, and numpy builds differ
@@ -278,6 +328,10 @@ DECODE_TOL_BF16 = 0.25
 # reference's `_attend` at 5e-2 in bf16, a different computation
 FLASH_TOL = {torch.float32: {"rtol": 2e-4, "atol": 2e-4},
              torch.bfloat16: {"rtol": 1e-2, "atol": 1e-3}}
+# phase 11 (a) holds the flash Function's dq, dk, dv to the float32
+# gradient of `_attend` on the same input values with the same
+# tolerances: in float32 both sum the same products in other orders; in
+# bf16 the Function's gradients are that float32 gradient rounded once
 KERNEL_SOURCES = ("gf_matmul", "gf2_xor", "flash_attention")  # csrc/<name>.cu
 
 
@@ -546,7 +600,9 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
     worst, used = {}, {}       # max |err|, max |err| / (atol + rtol |want|)
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[dtype]
-        shapes = cases + ([(QWEN_BATCH, QWEN_PROMPT, 32, 8, 128, True, 0)]
+        shapes = cases + ([(QWEN_BATCH, QWEN_PROMPT, 32, 8, 128, True, 0),
+                           (TRAIN_BATCH // TRAIN_CLIENTS, TRAIN_SEQ, 32, 8,
+                            128, True, 0)]
                           if dtype == torch.bfloat16 else [])
         worst[dtype] = used[dtype] = 0.0
         for B, S, H, KV, hd, causal, pad in shapes:
@@ -583,7 +639,8 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
                 check(torch.allclose(got, plain, **tol),
                       f"flash_attention {what} differs from _attend")
     print(f"phase 1: flash_attention == plain version, {len(cases)} shapes "
-          f"in each dtype + the phase-7 shape in bf16 (hd 32/64/128, groups "
+          f"in each dtype + the phase-7 and phase-11 shapes in bf16 (hd "
+          f"32/64/128, groups "
           f"1 and 4, S 1/100/129/256/300/2049, non-causal S=256, strided "
           f"views, views TMA cannot read in place): "
           + "; ".join(f"{str(dt)[6:]} tolerance {FLASH_TOL[dt]}, max_abs_err="
@@ -1780,6 +1837,383 @@ def phase10(wrappers, clients) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: FL-LM training at Qwen3-4B's full width
+# ---------------------------------------------------------------------------
+
+def leaf_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.detach().float() - want.detach().float()).abs().max())
+
+
+def phase11_flash(fa, attn, shape: tuple[int, ...]) -> float:
+    """(a) at the attention shape (B, S, H, KV, hd), bf16 and float32:
+    the Function's output == the kernel's and == `flash_attention_ref`
+    within FLASH_TOL, and its dq, dk, dv == autograd through `_attend`
+    (K and V expanded) in float32 on the same values within FLASH_TOL;
+    times the backward and PyTorch's fused attention's.  Returns the
+    largest gradient error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import attention_backward
+
+    B, S, H, KV, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(SEED_F1)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((B, S, n, hd), generator=g,
+                                   device="cuda").to(dtype)
+                       for n in (H, KV, KV, H))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = fa.flash_attention.launches
+        out = fa.flash_attention(*leaves)
+        check(fa.flash_attention.launches == before + 1,
+              "phase 11 (a): the Function did not launch the kernel once")
+        check(torch.equal(out, fa._launch(q, k, v, True)),
+              f"phase 11 (a): {dtype} Function output != the kernel's")
+        tol = FLASH_TOL[dtype]
+        want_out = ref.flash_attention_ref(q, k, v, causal=True).float()
+        fwd_err = leaf_err(out, want_out)
+        check(torch.allclose(out.float(), want_out, **tol),
+              f"phase 11 (a): {dtype} {shape} forward differs from "
+              f"flash_attention_ref (max |err| {fwd_err}, tolerance {tol})")
+        del want_out
+        got = torch.autograd.grad(out, leaves, do)
+        del out, leaves
+        ref32 = [x.float().requires_grad_() for x in (q, k, v)]
+        o = attn._attend(ref32[0], attn._expand_kv(ref32[1], H // KV),
+                         attn._expand_kv(ref32[2], H // KV), causal=True,
+                         window=None, q_offset=0)
+        want = torch.autograd.grad(o, ref32, do.float())
+        del o, ref32
+        errs = []
+        for name, a, b in zip("qkv", got, want, strict=True):
+            check(a.dtype == dtype and bool(torch.isfinite(a).all()),
+                  f"phase 11 (a): d{name} {a.dtype} or not finite")
+            errs.append(leaf_err(a, b))
+            check(torch.allclose(a.float(), b, **tol),
+                  f"phase 11 (a): {dtype} d{name} differs from autograd "
+                  f"through _attend (max |err| {errs[-1]}, tolerance {tol})")
+        worst = max(worst, *errs)
+        del got, want
+        # the backward's time, and the library's fused backward's
+        bwd_ms = time_launches(
+            lambda x: attention_backward(*x, causal=True), [(q, k, v, do)],
+            3)
+        lib = [x.transpose(1, 2).repeat_interleave(H // x.shape[2], dim=1)
+               .contiguous().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
+        lib_do = do.transpose(1, 2).contiguous()
+        lib_ms = time_launches(lambda x: torch.autograd.grad(
+            lib_out, lib, x, retain_graph=True), [lib_do], 5)
+        del lib, lib_out, lib_do
+        print(f"phase 11 (a): {str(dtype)[6:]} (B,S,H,KV,hd)="
+              f"{(B, S, H, KV, hd)} causal: Function output == the "
+              f"kernel's, == flash_attention_ref (max |err| {fwd_err}); "
+              f"dq, dk, dv == autograd through _attend in "
+              f"float32 (max |err| {errs[0]} / {errs[1]} / {errs[2]}, "
+              f"tolerance {tol}); backward (plain PyTorch, float32) "
+              f"{bwd_ms:.3f} ms, scaled_dot_product_attention's backward "
+              f"{lib_ms:.3f} ms")
+    return worst
+
+
+def phase11_attention_grads(cfg, params, batch) -> None:
+    """(a) one loss through `forward_hidden` of the full-width model
+    gives every attention parameter of every layer a finite, non-zero
+    gradient."""
+    from repro_torch.core.packets import tree_flatten, tree_unflatten
+    from repro_torch.models import transformer as tf
+
+    leaves, treedef = tree_flatten(params)
+    live = [t.detach().requires_grad_() for t in leaves]
+    tree = tree_unflatten(treedef, live)
+    shard = {k: x[:1] for k, x in batch.items()}
+    h, _ = tf.forward_hidden(tree, shard["tokens"], cfg)
+    h.float().square().mean().backward()
+    names = ("wq", "wk", "wv", "wo", "qnorm", "knorm")
+    n = 0
+    for i, layer in enumerate(tree["decoder"]):
+        for name in names:
+            for t in tree_flatten(layer["attn"][name])[0]:
+                ok = (t.grad is not None and bool(torch.isfinite(t.grad).all())
+                      and float(t.grad.abs().max()) > 0)
+                check(ok, f"phase 11 (a): layer {i} {name} has no finite "
+                          f"non-zero gradient")
+                n += 1
+    print(f"phase 11 (a): a loss through forward_hidden ({cfg.num_layers} "
+          f"layers, d={cfg.d_model}, 1 x {TRAIN_SEQ} tokens) gives all {n} "
+          f"attention parameters ({', '.join(names)}) a finite non-zero "
+          f"gradient")
+
+
+def phase11_aggregation(cfg, params, batch) -> dict:
+    """(b) one per-client gradient stack at full width through each
+    aggregation mode (synchronized ms); every coded mean == the plain
+    one within AGG_TOL."""
+    from repro_torch.core.packets import tree_flatten
+    from repro_torch.launch.steps import (_mix_matrix, aggregate_gradients,
+                                          client_gradients)
+
+    K = TRAIN_CLIENTS
+    losses, stack = client_gradients(params, batch, cfg, K)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(losses).all()),
+          f"phase 11 (b): non-finite client losses {losses.tolist()}")
+    A = _mix_matrix(torch.Generator().manual_seed(SEED_MIX), K)
+    plain, ms = None, {}
+    for mode in ("plain", "fednc_naive", "fednc_blocked"):
+        aggregate_gradients(stack, None, K, mode, A=A)          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = aggregate_gradients(stack, None, K, mode, A=A)
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) * 1e3
+        if plain is None:
+            plain = tree_flatten(mean)[0]
+            continue
+        errs = []
+        for a, b in zip(tree_flatten(mean)[0], plain, strict=True):
+            check(bool(torch.allclose(a.float(), b.float(), **AGG_TOL)),
+                  f"phase 11 (b): {mode} mean differs from plain's "
+                  f"(max |err| {leaf_err(a, b)}, tolerance {AGG_TOL})")
+            errs.append(leaf_err(a, b) / max(float(b.float().abs().max()),
+                                             1e-30))
+        del mean
+        print(f"phase 11 (b): {mode} == plain mean within {AGG_TOL} on "
+              f"every leaf (largest |err| / leaf scale {max(errs):.3e})")
+    n = sum(t.numel() for t in plain)
+    print(f"phase 11 (b): aggregation of K={K} per-client gradients of "
+          f"{n} bf16 parameters ({2 * K * n} bytes), synchronized: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f"; client losses {[round(x, 4) for x in losses.tolist()]}")
+    return ms
+
+
+def train_launches(cfg) -> int:
+    """The flash launches of phase 11's training run: each client's
+    forward and its remat recompute, per layer, per step."""
+    return 2 * cfg.num_layers * TRAIN_CLIENTS * TRAIN_STEPS
+
+
+def phase11_train(cfg, holder: dict):
+    """(b) TRAIN_STEPS steps of `fednc_blocked` through `launch.train`'s
+    loop on `holder["params"]`, which it takes (so that only the run
+    holds the weights a step replaces): finite losses; returns the
+    run."""
+    from repro_torch.launch.train import train
+
+    torch.cuda.reset_peak_memory_stats()
+    run = train(cfg, holder.pop("params"), steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, clients=TRAIN_CLIENTS, agg=TRAIN_AGG,
+                lr=TRAIN_LR, log_every=1,
+                log=lambda line: print(f"phase 11 (b): {line}"))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(run.losses)),
+          f"phase 11 (b): non-finite losses {run.losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    timed = run.step_s[1:]
+    print(f"phase 11 (b): {cfg.name} {cfg.num_layers} of 36 layers d="
+          f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} hd="
+          f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab {cfg.vocab_size} "
+          f"bf16, K={TRAIN_CLIENTS}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a "
+          f"step, adamw, remat, {TRAIN_AGG}: losses {run.losses}; step "
+          f"walls (synchronized) {run.step_s} s; after the first step "
+          f"{tokens * len(timed) / sum(timed):.1f} tokens/s ({len(timed)} "
+          f"steps: {[round(tokens / t, 1) for t in timed]}); "
+          f"max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)")
+    return run
+
+
+def phase11_trace(fa, cfg, run) -> None:
+    """(b) one more step under torch.profiler: device busy, top kernels,
+    the flash forward's share, and the plain backward's: each of its
+    calls in the step is bracketed by CUDA events, whose elapsed times
+    are the stream time the backward held."""
+    from repro_torch.data.tokens import make_token_stream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    step = make_train_step(cfg, adamw(linear_warmup_cosine(
+        TRAIN_LR, 10, TRAIN_STEPS)), num_clients=TRAIN_CLIENTS,
+        agg_mode=TRAIN_AGG)
+    b = make_token_stream(cfg.vocab_size, seed=1).batch(TRAIN_BATCH,
+                                                        TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in b.items()}
+    gen = torch.Generator().manual_seed(SEED_MIX)
+    backward, marks = fa.attention_backward, []
+
+    def timed_backward(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        grads = backward(*args, **kw)
+        stop.record()
+        marks.append((start, stop))
+        return grads
+
+    out = []
+
+    def traced_step():
+        t0 = time.perf_counter()
+        out.append(step(run.params, run.opt_state, batch, gen))
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+
+    fa.attention_backward = timed_backward
+    try:
+        per_name = device_profile("train step", traced_step)
+    finally:
+        fa.attention_backward = backward
+    wall_ms = out.pop()
+    run.params, run.opt_state, _ = out.pop()
+    busy = sum(per_name.values())
+    flash = sum(t for n, t in per_name.items()
+                if "flash_attention_kernel" in n)
+    check(flash > 0, "trace train step: no flash_attention_kernel")
+    calls = cfg.num_layers * TRAIN_CLIENTS
+    check(len(marks) == calls, f"trace train step: {len(marks)} flash "
+                               f"backward calls, not {calls}")
+    bwd_ms = sum(a.elapsed_time(z) for a, z in marks)
+    print(f"trace train step: flash_attention_kernel {flash:.1f} us of "
+          f"{busy:.1f} us summed kernel time ({100 * flash / busy:.2f}%); "
+          f"the plain backward's {calls} calls held the stream "
+          f"{bwd_ms:.3f} ms (CUDA events in the traced step; "
+          f"{100 * bwd_ms / wall_ms:.2f}% of the step's {wall_ms:.3f} ms "
+          f"synchronized wall under the profiler)")
+
+
+def phase11_card_vs_cpu(qwen: str) -> None:
+    """(c) one float32 step of the reduced model on the card and on the
+    CPU from the same weights, batch and mixing matrix: per-client and
+    aggregated gradients within GRAD_TOL, the same loss."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.packets import tree_flatten, tree_map
+    from repro_torch.data.tokens import make_token_stream
+    from repro_torch.launch.steps import (_mix_matrix, aggregate_gradients,
+                                          client_gradients)
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced_config(qwen).with_overrides(dtype=torch.float32)
+    K = TRAIN_CLIENTS
+    params = tf.init_lm(torch.Generator().manual_seed(SEED_QWEN), cfg,
+                        device="cpu")
+    b = make_token_stream(cfg.vocab_size, seed=0).batch(REDUCED_BATCH,
+                                                        REDUCED_SEQ)
+    A = _mix_matrix(torch.Generator().manual_seed(SEED_MIX), K)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t, dev=dev: t.to(dev), params)
+        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in b.items()}
+        losses, stack = client_gradients(p, batch, cfg, K)
+        mean = aggregate_gradients(stack, None, K, TRAIN_AGG, A=A)
+        outs[dev] = (losses.cpu(), [t.cpu() for t in tree_flatten(stack)[0]],
+                     [t.cpu() for t in tree_flatten(mean)[0]])
+    worst = 0.0
+    for what, i in (("per-client", 1), ("aggregated", 2)):
+        for j, (a, b_) in enumerate(zip(outs["cuda"][i], outs["cpu"][i],
+                                        strict=True)):
+            bound = (GRAD_TOL["rtol"] * b_.abs()
+                     + GRAD_TOL["scale"] * b_.abs().max())
+            diff = (a - b_).abs()
+            check(bool((diff <= bound).all()),
+                  f"phase 11 (c): {what} gradient leaf {j} differs from the "
+                  f"CPU's (max |err| {float(diff.max())}, {GRAD_TOL})")
+            worst = max(worst, float(diff.max() / b_.abs().max()))
+    check(torch.allclose(outs["cuda"][0], outs["cpu"][0], rtol=1e-5,
+                         atol=0), "phase 11 (c): client losses differ")
+    print(f"phase 11 (c): reduced {qwen} float32, K={K}, {REDUCED_BATCH} x "
+          f"{REDUCED_SEQ} tokens, {TRAIN_AGG}: per-client and aggregated "
+          f"gradients on the card == the CPU's within {GRAD_TOL} (largest "
+          f"|err| / leaf scale {worst:.3e}); losses "
+          f"{outs['cuda'][0].tolist()} / {outs['cpu'][0].tolist()}")
+
+
+def phase11_checkpoint(params) -> None:
+    """(d) save_pytree / load_pytree of the trained parameters round-trip
+    bit for bit on the card."""
+    import shutil
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.core.packets import tree_flatten
+
+    where = ROOT / "build" / "phase11_ckpt"
+    where.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        save_pytree(str(where / "params"), params,
+                    metadata={"phase": 11, "steps": TRAIN_STEPS})
+        save_s = time.perf_counter() - t0
+        size = (where / "params.npz").stat().st_size
+        t0 = time.perf_counter()
+        back = load_pytree(str(where / "params"), params, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pairs = list(zip(tree_flatten(back)[0], tree_flatten(params)[0],
+                         strict=True))
+        check(all(a.device == b.device and a.dtype == b.dtype
+                  and torch.equal(a, b) for a, b in pairs),
+              "phase 11 (d): the loaded parameters differ from the saved")
+        keys = json.loads((where / "params.manifest.json").read_text())
+        print(f"phase 11 (d): save_pytree / load_pytree of {len(pairs)} "
+              f"trained leaves ({size} bytes of npz, bf16 widened) "
+              f"round-trip bit for bit on the card (save {save_s:.3f} s, "
+              f"load {load_s:.3f} s; manifest of {len(keys['keys'])} keys)")
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+
+
+def phase11(fa, attn, wrappers, cfg, holder: dict) -> dict:
+    """Phase 11; `holder["params"]` (phase 7's weights cut to
+    TRAIN_LAYERS) is taken, so that only the training run holds them.
+    Returns the training run's launch counts."""
+    from repro_torch.core.packets import tree_flatten
+    from repro_torch.data.tokens import make_token_stream
+
+    t0 = time.perf_counter()
+    cfg = cfg.with_overrides(num_layers=TRAIN_LAYERS)
+    params = holder.pop("params")
+    b = make_token_stream(cfg.vocab_size, seed=0).batch(TRAIN_BATCH,
+                                                        TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in b.items()}
+    # phase 7's prefill shape and the training run's per-client shape
+    grad_err = max(phase11_flash(fa, attn, shape) for shape in (
+        (QWEN_BATCH, QWEN_PROMPT, 32, 8, 128),
+        (TRAIN_BATCH // TRAIN_CLIENTS, TRAIN_SEQ, 32, 8, 128)))
+    phase11_attention_grads(cfg, params, batch)
+    torch.cuda.reset_peak_memory_stats()
+    phase11_aggregation(cfg, params, batch)
+    print(f"phase 11 (b): max_memory_allocated of the aggregation check "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    del batch
+    # the first remat call (the aggregation check's) imports torch's
+    # compiler stack, which leaves its callers' frames, and with them a
+    # gradient stack, in a reference cycle: collect it before training
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11 (b): memory_allocated before the training run "
+          f"{torch.cuda.memory_allocated()} bytes (the weights "
+          f"{sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])})")
+    holder["params"] = params
+    del params
+    counts, run = main_path("phase 11", wrappers, ("flash_attention",),
+                            lambda: phase11_train(cfg, holder))
+    want = train_launches(cfg)
+    check(counts["flash_attention"] == want,
+          f"phase 11 (b): flash_attention launched "
+          f"{counts['flash_attention']} times, not {want} (forward and "
+          f"remat recompute, per layer, per client, per step)")
+    phase11_trace(fa, cfg, run)
+    phase11_card_vs_cpu(QWEN)
+    phase11_checkpoint(run.params)
+    print(f"phase 11: {time.perf_counter() - t0:.3f} s; flash launches of "
+          f"the training run {counts['flash_attention']} == 2 x "
+          f"{cfg.num_layers} layers x {TRAIN_CLIENTS} clients x "
+          f"{TRAIN_STEPS} steps; largest flash gradient error {grad_err}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # where a round's time goes: one traced round per 500M configuration
 # ---------------------------------------------------------------------------
 
@@ -2132,14 +2566,19 @@ def main() -> None:
                           ("gf_matmul_packed", "gf_matmul_packed_seeded",
                            "gf_matmul_unpacked", "gf2_matmul"),
                           lambda: phase10(wrappers, cnn[1])))
+    trace_serving(cfg, params, prompt)
+    # phase 11 trains on phase 7's first TRAIN_LAYERS layers; the rest go
+    holder = {"params": {**params,
+                         "decoder": params["decoder"][:TRAIN_LAYERS]}}
+    del params, prompt
+    torch.cuda.empty_cache()
+    runs.append((phase11(fa, attn, wrappers, cfg, holder), None))
+    torch.cuda.empty_cache()
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-10)")
-    trace_serving(cfg, params, prompt)
-    del params, prompt
-    torch.cuda.empty_cache()
+          + " (phases 2-11)")
     times["flash_attention"] = time_flash(fa, ref)
 
     gm_py = "src/repro/kernels/gf_matmul.py"

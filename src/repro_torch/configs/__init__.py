@@ -22,7 +22,17 @@ ARCHITECTURES = (
     "qwen2_72b",
     "qwen3_8b",
 )
-PORTED = ("qwen3_4b",)
+PORTED = ("qwen3_4b", "qwen3_8b", "qwen2_72b")
+# where each unported architecture waits in ROADMAP.md §1
+_MILESTONE = {
+    "xlstm_125m": "M3 (the recurrent and windowed families)",
+    "recurrentgemma_9b": "M3 (the recurrent and windowed families)",
+    "starcoder2_15b": "M3 (the recurrent and windowed families)",
+    "arctic_480b": "M4 (MoE and MLA)",
+    "deepseek_v2_236b": "M4 (MoE and MLA)",
+    "llama3_2_vision_90b": "M5 (cross-attention, encoders, frontends)",
+    "seamless_m4t_medium": "M5 (cross-attention, encoders, frontends)",
+}
 
 # CLI ids (dashes) -> module names
 _ALIASES = {a.replace("_", "-"): a for a in ARCHITECTURES}
@@ -47,7 +57,7 @@ def _module(name: str):
     if key not in PORTED:
         raise NotImplementedError(
             f"{name}: not ported to repro_torch yet (ported: {PORTED}); "
-            f"see ROADMAP.md §1 item 13 for the LM side still to port")
+            f"see ROADMAP.md §1 {_MILESTONE[key]}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -47,17 +47,19 @@ def tree_flatten(tree) -> tuple[list[torch.Tensor], Any]:
     return [tree], None
 
 
+def _build(d, it) -> Any:
+    if d is None:
+        return next(it)
+    if isinstance(d, dict):
+        return {k: _build(v, it) for k, v in d.items()}
+    return type(d)(_build(v, it) for v in d)
+
+
 def tree_unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        if isinstance(d, dict):
-            return {k: build(v) for k, v in d.items()}
-        return type(d)(build(v) for v in d)
-
-    return build(treedef)
+    # a module-level builder: a nested one that calls itself is a
+    # reference cycle, which would keep `leaves` (a whole gradient
+    # stack) alive until the garbage collector happens to run
+    return _build(treedef, iter(leaves))
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

@@ -28,7 +28,6 @@ from repro_torch.core import packets as pkt
 from repro_torch.core.channel import (ArrivalSchedule, AsyncChannelReport,
                                       BlindBoxChannel, ChannelReport)
 from repro_torch.core.fednc import FedNCConfig, RoundResult
-from repro_torch.core.rlnc import random_coding_matrix
 
 
 def _generator(rng: np.random.Generator) -> torch.Generator:
@@ -83,16 +82,21 @@ class FedNCStrategy:
         cfg = self.config
         if isinstance(self.channel, BlindBoxChannel):
             # encode once per emitted packet: the network multicasts
-            # fresh combinations; the server keeps `budget` of them
-            # (packetized as the reference does here: unquantized)
+            # fresh combinations; the server keeps `budget` of them.
+            # Packetized, drawn and dequantized through the config-
+            # honoring helpers, as AsyncFedNCStrategy is (quantize_bits,
+            # systematic, coding_density); the reference's blind-box
+            # path ignores all three (ROADMAP.md §3 R5).  With the
+            # default config this is the reference's path byte for byte.
             engine = fednc_mod.engine_for(cfg, self.device)
-            P, spec = engine.packetize(client_params)
-            K = P.shape[0]
+            P, spec, qspecs = fednc_mod.packetize_clients(
+                client_params, cfg, self.device)
             n = self.channel.budget
-            A = random_coding_matrix(gen, n, K, cfg.s)
-            batch = engine.encode(P, A)
+            batch = engine.encode(P, engine.coding_matrix(gen, n,
+                                                          P.shape[0]))
             res = fednc_mod.decode_and_aggregate(
-                batch, spec, weights, prev_global, cfg, device=self.device)
+                batch, spec, weights, prev_global, cfg, qspecs=qspecs,
+                device=self.device)
             res.report = ChannelReport(n, n, res.decoded)
             return res
         return fednc_mod.fednc_round(client_params, weights, prev_global,

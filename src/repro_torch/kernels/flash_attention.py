@@ -1,7 +1,7 @@
 """Causal flash attention: CUDA kernels and wrapper.
 
-The attention of every prefill and forward call of the LM serving path.
-Two hand-written Hopper kernels live in `csrc/flash_attention.cu`, one
+The attention of every prefill, forward and training call of the LM
+path.  Two hand-written Hopper kernels live in `csrc/flash_attention.cu`, one
 per dtype, behind one wrapper:
 
 * `flash_attention(q, k, v, causal=)` — replaces the TPU kernel
@@ -24,7 +24,11 @@ ValueError otherwise.
 
 The wrapper decides by the tensor's device alone: a CPU tensor runs the
 plain version `ref.flash_attention_ref`, a CUDA tensor launches the
-kernel or raises.  It counts its launches in ``.launches``.
+kernel or raises.  It counts its launches in ``.launches``.  It is an
+autograd Function: the kernels compute no logsumexp, so its backward,
+`attention_backward`, recomputes the softmax in float32 and applies the
+closed-form gradient of the reference's `_attend` in plain PyTorch (the
+reference takes that gradient by autodiff, outside any kernel).
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 HEAD_DIMS = (32, 64, 128)          # the kernel's template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: float32 elements of one (B, H, rows, keys) tensor of the backward
+BWD_CHUNK_ELEMS = 1 << 28
 
 _SIGNATURE = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
               + [ctypes.c_longlong] * 12
@@ -109,17 +115,10 @@ def tma_ready(x: torch.Tensor) -> bool:
             and all(st > 0 and st * size % 16 == 0 for st in _strides(x)))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """softmax(q·kᵀ/sqrt(hd))·v per head: q (B, S, H, hd), k and v
-    (B, S, KV, hd) with H a multiple of KV -> (B, S, H, hd) in q's dtype.
-
-    CUDA tensors launch the hand-written kernel of their dtype; CPU
-    tensors run `ref.flash_attention_ref`.
-    """
-    check_operands(q, k, v, causal)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """One launch of the kernel of q's dtype on checked CUDA operands;
+    raises if it fails and counts it in ``flash_attention.launches``."""
     B, S, H, hd = q.shape
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -144,6 +143,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"({lib.flash_error_string(err).decode()})")
     flash_attention.launches += 1
     return out
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, *,
+                       causal: bool) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of o = softmax(q·kᵀ/sqrt(hd) + mask)·v, in float32,
+    returned in the inputs' dtypes.
+
+    The closed form of the gradient the reference takes by autodiff of
+    its float32 `_attend`: with S the masked scores and P = softmax(S),
+    dV = Pᵀ·dO, dS = P ⊙ (dP − rowsum(P ⊙ dP)) with dP = dO·Vᵀ,
+    dQ = dS·K/sqrt(hd), dK = dSᵀ·Q/sqrt(hd), each KV head summing the
+    gradients of the H / KV query heads that share it.  rowsum(P ⊙ dP)
+    is rowsum(dO ⊙ O) for the float32 O = P·V; the kernel's own output
+    is not used there, since the bf16 kernel rounds P and O to bf16 and
+    that would move the bf16 gradients off `_attend`'s.  P is recomputed
+    from q and k in chunks of query rows (a causal chunk reads only the
+    keys up to its last row), so no (B, H, S, S) tensor is built at
+    once."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    q32 = q.float().reshape(B, S, KV, G, hd)
+    do32 = dout.float().reshape(B, S, KV, G, hd)
+    k32, v32 = k.float(), v.float()
+    dq = torch.empty_like(q32)
+    dk = torch.zeros_like(k32)
+    dv = torch.zeros_like(v32)
+    rows = max(1, BWD_CHUNK_ELEMS // max(B * H * S, 1))
+    for i0 in range(0, S, rows):
+        i1 = min(S, i0 + rows)
+        T = i1 if causal else S
+        qc, doc = q32[:, i0:i1], do32[:, i0:i1]
+        kt, vt = k32[:, :T], v32[:, :T]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qc, kt) * scale
+        if causal:
+            qpos = torch.arange(i0, i1, device=q.device)[:, None]
+            kpos = torch.arange(T, device=q.device)[None, :]
+            s.masked_fill_(kpos > qpos, ref.FLASH_MASK)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dp = torch.einsum("bqkgd,btkd->bkgqt", doc, vt)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del dp
+        dq[:, i0:i1] = torch.einsum("bkgqt,btkd->bqkgd", ds, kt) * scale
+        dk[:, :T] += torch.einsum("bkgqt,bqkgd->btkd", ds, qc) * scale
+        dv[:, :T] += torch.einsum("bkgqt,bqkgd->btkd", p, doc)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) forward and
+    `attention_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            out = ref.flash_attention_ref(q, k, v, causal=causal)
+        else:
+            out = _launch(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*attention_backward(*ctx.saved_tensors, dout,
+                                    causal=ctx.causal), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """softmax(q·kᵀ/sqrt(hd))·v per head: q (B, S, H, hd), k and v
+    (B, S, KV, hd) with H a multiple of KV -> (B, S, H, hd) in q's dtype,
+    differentiable in q, k and v (`attention_backward`).
+
+    CUDA tensors launch the hand-written kernel of their dtype (a launch
+    that fails raises; nothing falls back to another attention); CPU
+    tensors run `ref.flash_attention_ref`.
+    """
+    check_operands(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 flash_attention.launches = 0

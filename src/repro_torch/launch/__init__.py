@@ -1,4 +1,4 @@
-"""Launch layer: step builders (serving steps so far)."""
+"""Launch layer: step builders and the training driver (`train`)."""
 from . import steps
 
 __all__ = ["steps"]

@@ -5,7 +5,9 @@ The port of the GQA part of `repro.models.attention`.  Causal attention
 without a window — every train and prefill call of a full-attention
 model — runs through the hand-written flash-attention kernel
 (`kernels.ops.flash_attention`), which indexes the KV head of each query
-head instead of expanding K and V.  `_attend`, the plain masked
+head instead of expanding K and V; its backward is the exact gradient of
+`_attend` (`kernels.flash_attention.attention_backward`), so training
+through it gives q, k and v the reference's gradients.  `_attend`, the plain masked
 softmax in float32, stays for decode (one query against the ring-buffer
 cache, as the reference computes it outside any kernel) and for
 windowed prefill (unchunked: the reference's q-chunked form above 8,192
@@ -35,7 +37,7 @@ MASK_VALUE = -1e30
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               f"see ROADMAP.md §1 item 13")
+                               f"see ROADMAP.md §1 M4 (MoE and MLA)")
 
 
 # ---------------------------------------------------------------------------

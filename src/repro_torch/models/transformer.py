@@ -1,8 +1,10 @@
-"""Model assembly: the decoder stack, prefill / decode caches, the LM.
+"""Model assembly: the decoder stack, prefill / decode caches, the LM
+and its loss.
 
 The port of `repro.models.transformer` for the ``"dense"`` block (GQA
-self-attention + dense MLP), which is every layer of Qwen3-4B.  Other
-block kinds, encoders and frontends are not ported yet and raise.
+self-attention + dense MLP), which is every layer of Qwen3-4B, Qwen3-8B
+and Qwen2-72B.  Other block kinds, encoders and frontends are not
+ported yet and raise.
 
 The reference stacks the repeated groups' parameters and runs them with
 `lax.scan`; the port keeps one parameter dict per layer in
@@ -12,7 +14,10 @@ list of per-layer caches in the same order.
 `lm_params_from_jax` carries a reference `init_lm` tree across.
 
 Modes:
-  train    — full sequence, no cache (`forward_hidden`)
+  train    — full sequence, no cache (`forward_hidden`, `lm_loss`);
+             ``remat`` recomputes each block's activations in the
+             backward pass (`torch.utils.checkpoint`, the reference's
+             `jax.checkpoint` of its scan body)
   prefill  — full sequence, fills decode caches, returns last logits
   decode   — one token through the ring-buffer caches
 """
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.packets import params_from_jax, tree_map
 
@@ -30,13 +36,16 @@ from .layers import (dense_apply, dense_init, embed_apply, embed_init,
                      mlp_apply, mlp_init, norm_apply, norm_init)
 
 PORTED_KINDS = ("dense",)
+LOSS_CHUNK = 512    # seq positions per LM-head chunk (bounds logits memory)
 
 
 def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported to repro_torch yet "
-            f"(ported: {PORTED_KINDS}); see ROADMAP.md §1 item 13")
+            f"(ported: {PORTED_KINDS}); see ROADMAP.md §1 M3 (recurrent "
+            f"and windowed), M4 (MoE, MLA) and M5 (cross-attention, "
+            f"encoders)")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -100,11 +109,19 @@ def make_decoder_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def apply_decoder_stack(layers: list[dict], x: torch.Tensor,
                         cfg: ModelConfig, *, cache: Optional[list] = None,
-                        window: Optional[int] = None):
-    """Returns (x, new_cache); new_cache is None without a cache."""
+                        window: Optional[int] = None, remat: bool = False):
+    """Returns (x, new_cache); new_cache is None without a cache.
+    ``remat`` (train only) checkpoints each block: the same values, with
+    its activations recomputed in the backward pass."""
     new_cache = [] if cache is not None else None
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), layers,
                                       strict=True)):
+        if remat and cache is None:
+            x = checkpoint(
+                lambda x, kind=kind, p=p: apply_block(
+                    kind, p, x, cfg, window=window)[0],
+                x, use_reentrant=False)
+            continue
         c = cache[i] if cache is not None else None
         x, nc = apply_block(kind, p, x, cfg, cache=c, window=window)
         if cache is not None:
@@ -120,7 +137,7 @@ def _check_lm(cfg: ModelConfig) -> None:
     if cfg.encoder_layers > 0 or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: encoders and frontends are not ported to "
-            f"repro_torch yet; see ROADMAP.md §1 item 13")
+            f"repro_torch yet; see ROADMAP.md §1 M5")
     for kind in layer_kinds(cfg):
         _check_kind(kind)
 
@@ -181,13 +198,40 @@ def _lm_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-                   window=None):
+                   window=None, remat: bool = False):
     """tokens (B, S) -> (final-normed hidden states (B, S, d), aux loss);
     the aux loss is 0 for dense blocks."""
     x = embed_apply(params["embed"], tokens)
-    x, _ = apply_decoder_stack(params["decoder"], x, cfg, window=window)
+    x, _ = apply_decoder_stack(params["decoder"], x, cfg, window=window,
+                               remat=remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return norm_apply(params["final_norm"], x, cfg.norm), aux
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
+            window: Optional[int] = None, remat: bool = True):
+    """Causal LM loss -> (loss + aux, {"xent", "aux"}).  batch holds
+    "tokens" and "labels" (B, S); labels < 0 are ignored.  The LM head
+    runs on LOSS_CHUNK positions at a time, so (B, S, V) logits never
+    exist at once, and the vocabulary's padding columns are masked."""
+    h, aux = forward_hidden(params, batch["tokens"], cfg, window=window,
+                            remat=remat)
+    labels = batch["labels"]
+    chunk = min(LOSS_CHUNK, h.shape[1])
+    vmask = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
+    sums, counts = [], []
+    for c0 in range(0, h.shape[1], chunk):
+        logits = _lm_logits(params, h[:, c0:c0 + chunk], cfg).float()
+        logits = torch.where(vmask, logits, attn.MASK_VALUE)
+        logp = torch.log_softmax(logits, dim=-1)
+        lc = labels[:, c0:c0 + chunk]
+        valid = lc >= 0
+        nll = -torch.gather(logp, -1, lc.clamp(min=0)[..., None].long()
+                            )[..., 0]
+        sums.append(torch.sum(nll * valid))
+        counts.append(torch.sum(valid))
+    loss = torch.stack(sums).sum() / torch.stack(counts).sum().clamp(min=1)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,6 @@ from repro.models import cnn as jcnn
 from repro_torch.core import rlnc as trlnc
 from repro_torch.core.packets import params_from_jax
 from repro_torch.engine.engine import CodingEngine as TEngine
-from repro_torch.federation import server as tserver
 from repro_torch.grid import GridAxes, grid_document, markdown_report
 from repro_torch.grid import run_grid, run_scenario, scenario_seed
 from repro_torch.grid import __main__ as tcli
@@ -343,14 +342,16 @@ def test_cell_metrics_equal_reference_on_its_draws(case, monkeypatch):
 
     # the engine cells draw through the engine's methods, the async
     # strategy through `random_coding_matrix` (which the reference's
-    # engine methods call in turn, so only one of the two is recorded)
+    # engine methods call in turn, so only one of the two is recorded;
+    # the reference's server imports it by name, the port's strategies
+    # draw through `core.rlnc`)
     draws = []
     if spec.strategy in texecute.ASYNC_STRATEGIES:
-        methods, modules = (), ((jrlnc, trlnc), (jserver, tserver))
+        methods, jmodules, tmodules = (), (jrlnc, jserver), (trlnc,)
     else:
         methods = ("coding_matrix", "coding_seeds",
                    "multi_edge_coding_matrix")
-        modules = ()
+        jmodules = tmodules = ()
     for name in methods:
         monkeypatch.setattr(JEngine, name, _engine_recorder(draws, name))
     jdraw = jrlnc.random_coding_matrix
@@ -359,7 +360,7 @@ def test_cell_metrics_equal_reference_on_its_draws(case, monkeypatch):
         A = jdraw(key, n, k, s)
         draws.append(("random_coding_matrix", np.asarray(A)))
         return A
-    for jmod, _ in modules:
+    for jmod in jmodules:
         monkeypatch.setattr(jmod, "random_coding_matrix", record)
     want = jexecute.run_scenario(want_spec)
     assert draws
@@ -371,7 +372,7 @@ def test_cell_metrics_equal_reference_on_its_draws(case, monkeypatch):
         kind, A = draws.pop(0)
         assert kind == "random_coding_matrix" and A.shape == (n, k)
         return torch.from_numpy(A.copy())
-    for _, tmod in modules:
+    for tmod in tmodules:
         monkeypatch.setattr(tmod, "random_coding_matrix", replay)
     monkeypatch.setattr(texecute, "host_generator",
                         lambda *words: torch.Generator())

@@ -235,18 +235,26 @@ def _lm_leaves(params: dict) -> list:
 
 
 def test_configs_match_reference_and_unported_ones_raise(J):
-    for getter in ("get_config", "reduced_config"):
-        jc = getattr(J.configs, getter)("qwen3_4b")
-        tc = getattr(tconfigs, getter)("qwen3-4b")
-        for field in ("num_layers", "d_model", "num_heads", "num_kv_heads",
-                      "resolved_head_dim", "d_ff", "vocab_size",
-                      "padded_vocab", "qk_norm", "rope_theta", "act",
-                      "norm", "window", "tie_embeddings", "scan_pattern"):
-            assert getattr(tc, field) == getattr(jc, field), field
-        assert tc.dtype == torch.bfloat16
-        tc.validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfigs.get_config("qwen3-8b")
+    """Every ported config (Qwen3-4B, Qwen3-8B, Qwen2-72B), full and
+    reduced, equals the reference's field for field; an unported one
+    raises and names its milestone in ROADMAP.md."""
+    import dataclasses
+    assert tconfigs.PORTED == ("qwen3_4b", "qwen3_8b", "qwen2_72b")
+    for arch in tconfigs.PORTED:
+        for getter in ("get_config", "reduced_config"):
+            jc = getattr(J.configs, getter)(arch)
+            tc = getattr(tconfigs, getter)(arch.replace("_", "-"))
+            for f in dataclasses.fields(jc):
+                if f.name != "dtype":
+                    assert getattr(tc, f.name) == getattr(jc, f.name), \
+                        (arch, getter, f.name)
+            for prop in ("resolved_head_dim", "padded_vocab"):
+                assert getattr(tc, prop) == getattr(jc, prop), prop
+            assert tc.dtype == torch.bfloat16
+            tc.validate()
+    assert tconfigs.get_config("qwen2-72b").qkv_bias
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 M3"):
+        tconfigs.get_config("xlstm-125m")
     with pytest.raises(ValueError, match="unknown"):
         tconfigs.get_config("no-such-model")
     assert tconfigs.list_architectures() == J.configs.list_architectures()
