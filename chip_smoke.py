@@ -132,6 +132,35 @@ failing on the first wrong result:
    and on the CPU: per-client and aggregated gradients within rtol 1e-4
    plus 1e-5 of each leaf's scale; (d) `save_pytree` / `load_pytree` of
    the trained parameters must round-trip bit for bit on the card.
+12. the recurrent and windowed families (after phase 11), one model on
+   the card at a time, bf16 weights at the reference's scales from a
+   seed: (a) xLSTM-125M (12 layers: 10 mLSTM, 2 sLSTM),
+   RecurrentGemma-9B (38 layers: 26 RG-LRU, 12 local attention, window
+   2,048, hd 256) and StarCoder2-15B (40 layers, window 4,096, hd 128)
+   at full width and depth: 4 prompts of 2,048 random ids through
+   `make_prefill_step` (cache 2,080; a warm prefill, then the timed one)
+   and 32 greedy steps through `make_serve_step` (the first one warm):
+   finite logits and states, the flash kernel launched once per layer
+   per prefill and per fresh forward for StarCoder2-15B (S <= window)
+   and never for the others, and the last step's cached logits equal to
+   a fresh `forward_hidden` over the prompt and the 32 fed tokens within
+   0.25 (RecurrentGemma's 2,048-slot ring wraps during decode;
+   xLSTM-125M's mLSTM normaliser amplifies the rounding of its two
+   schedules, so its cache is held on the same weights in float32 within
+   1e-2 and its bf16 error is printed); it prints the prefill wall,
+   prompt tokens/s, decode ms per step and `max_memory_allocated`, and
+   profiles one more prefill; (b) StarCoder2-15B on one prompt of 16,384
+   ids with ``window=cfg.window`` given: a 4,096-slot ring, each layer's
+   prefill attention one `_attend_chunked` call (above CHUNK_THRESHOLD),
+   no flash launch, then 8 serve steps: finite logits; it prints the
+   prefill wall and peak memory; (c) FL-LM training of xLSTM-125M at
+   full width as `examples/train_fl_lm.py --full` runs it
+   (`launch.train`: K = 4, 8 x 128 tokens, `fednc_blocked`, AdamW,
+   remat), 3 steps: finite losses, step walls, tokens/s and peak memory,
+   then one traced step's device busy share and top kernels; (d) one
+   float32 step of the reduced xLSTM-125M and of the reduced
+   RecurrentGemma-9B on the card and on the CPU: per-client and
+   aggregated gradients within rtol 1e-4 plus 1e-5 of each leaf's scale.
 
 Phase 1 also holds the packed kernel's batched instance against its
 plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
@@ -148,7 +177,7 @@ tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
 and global loads by width; the selects per word and packet row) and the
 count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
-Each of phases 2-11 (each run of phase 9; phase 11's training run)
+Each of phases 2-12 (each run of phase 9; phase 11's training run)
 drives the main path with every
 launch count set to 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
@@ -162,7 +191,7 @@ kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-11), error, time, plain time and bound.  The last line is
+2-12), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -299,6 +328,30 @@ AGG_TOL = {"rtol": 2e-2, "atol": 2e-3}
 # |card - cpu| <= rtol·|cpu| + scale·max|cpu| per leaf
 GRAD_TOL = {"rtol": 1e-4, "scale": 1e-5}
 REDUCED_BATCH, REDUCED_SEQ = 8, 64
+# phase 12: the recurrent and windowed families at full width and depth,
+# random weights at the reference's scales, one model on the card at a
+# time (StarCoder2-15B: 15.96B bf16 parameters, 31.9 GB)
+M3_ARCHS = ("xlstm-125m", "recurrentgemma-9b", "starcoder2-15b")
+M3_BATCH = 4
+M3_PROMPT = 2048
+M3_DECODE = 32                   # greedy steps; the cache holds prompt + these
+# (b): StarCoder2-15B's published context length, above the port's
+# CHUNK_THRESHOLD (8,192), so its windowed prefill is q-chunked
+M3_LONG_PROMPT = 16384
+M3_LONG_DECODE = 8
+M3_TRAIN_SEQ = 128               # (c): examples/train_fl_lm.py --full
+# (a): xLSTM-125M's cached decode is held against a fresh forward on its
+# weights in float32.  Its mLSTM divides by max(|n·q|, exp(-m)), which
+# amplifies the rounding of the two schedules (chunkwise prefill against
+# step-by-step decode): at full width on the CPU (B = 1, 2,052 tokens)
+# float32 differs by 1.8e-4 to 9.5e-4 and bf16 by 0.22, and on the card
+# bf16 differed by 1.52 (B = 4), so its bf16 error is measured, not held.
+# One decode step's state lost, or one fed token changed, moves the
+# float32 logits by 5.3 (CPU), far past the tolerance
+M3_F32_HELD = ("xlstm-125m",)
+M3_F32_TOL = {"rtol": 0.0, "atol": 1e-2}
+SEED_M3 = 22                     # weights, drawn on the card
+SEED_M3_PROMPT = 23              # prompt token ids
 # (d): counts and rates must equal the fixture exactly.  The simulated
 # clock's fields (time_*) are sums of ~300 gaps scaled by slowness
 # factors normalized by a mean over 10^6 clients, and numpy builds differ
@@ -1253,17 +1306,18 @@ def clear_margin(fresh: torch.Tensor, cfg, tol: dict) -> torch.Tensor:
     return (top2[..., 0] - top2[..., 1]) > 2 * bound
 
 
-def held_to_fresh(dec, fresh, cfg, tol: dict, what: str) -> tuple[float, int]:
+def held_to_fresh(dec, fresh, cfg, tol: dict, what: str,
+                  phase: str = "phase 7") -> tuple[float, int]:
     """Cached-decode logits == fresh ones within `tol`, and the same
     greedy token wherever the margin is clear; (max |err|, requests with
     a clear margin)."""
     err = float((dec - fresh).abs().max())
     check(torch.allclose(dec, fresh, **tol),
-          f"phase 7: {what} cached decode logits differ from a fresh "
+          f"{phase}: {what} cached decode logits differ from a fresh "
           f"forward (max |err| {err}, tolerance {tol})")
     clear = clear_margin(fresh, cfg, tol)
     check(torch.equal(greedy(dec, cfg)[clear], greedy(fresh, cfg)[clear]),
-          f"phase 7: {what} cached and fresh greedy tokens differ at a "
+          f"{phase}: {what} cached and fresh greedy tokens differ at a "
           f"clear margin")
     return err, int(clear.sum())
 
@@ -2083,8 +2137,8 @@ def phase11_trace(fa, cfg, run) -> None:
           f"synchronized wall under the profiler)")
 
 
-def phase11_card_vs_cpu(qwen: str) -> None:
-    """(c) one float32 step of the reduced model on the card and on the
+def phase11_card_vs_cpu(arch: str, label: str = "phase 11 (c)") -> None:
+    """(c) one float32 step of the reduced `arch` on the card and on the
     CPU from the same weights, batch and mixing matrix: per-client and
     aggregated gradients within GRAD_TOL, the same loss."""
     from repro_torch.configs import reduced_config
@@ -2094,7 +2148,7 @@ def phase11_card_vs_cpu(qwen: str) -> None:
                                           client_gradients)
     from repro_torch.models import transformer as tf
 
-    cfg = reduced_config(qwen).with_overrides(dtype=torch.float32)
+    cfg = reduced_config(arch).with_overrides(dtype=torch.float32)
     K = TRAIN_CLIENTS
     params = tf.init_lm(torch.Generator().manual_seed(SEED_QWEN), cfg,
                         device="cpu")
@@ -2117,12 +2171,12 @@ def phase11_card_vs_cpu(qwen: str) -> None:
                      + GRAD_TOL["scale"] * b_.abs().max())
             diff = (a - b_).abs()
             check(bool((diff <= bound).all()),
-                  f"phase 11 (c): {what} gradient leaf {j} differs from the "
+                  f"{label}: {what} gradient leaf {j} differs from the "
                   f"CPU's (max |err| {float(diff.max())}, {GRAD_TOL})")
             worst = max(worst, float(diff.max() / b_.abs().max()))
     check(torch.allclose(outs["cuda"][0], outs["cpu"][0], rtol=1e-5,
-                         atol=0), "phase 11 (c): client losses differ")
-    print(f"phase 11 (c): reduced {qwen} float32, K={K}, {REDUCED_BATCH} x "
+                         atol=0), f"{label}: client losses differ")
+    print(f"{label}: reduced {arch} float32, K={K}, {REDUCED_BATCH} x "
           f"{REDUCED_SEQ} tokens, {TRAIN_AGG}: per-client and aggregated "
           f"gradients on the card == the CPU's within {GRAD_TOL} (largest "
           f"|err| / leaf scale {worst:.3e}); losses "
@@ -2211,6 +2265,330 @@ def phase11(fa, attn, wrappers, cfg, holder: dict) -> dict:
           f"{cfg.num_layers} layers x {TRAIN_CLIENTS} clients x "
           f"{TRAIN_STEPS} steps; largest flash gradient error {grad_err}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent and windowed families at full width
+# ---------------------------------------------------------------------------
+
+def m3_model(cfg, batch: int, prompt_len: int):
+    """(params, prompt): bf16 weights at the reference's scales and
+    batch x prompt_len token ids, both drawn from seeds on the card."""
+    from repro_torch.models import transformer as tf
+
+    params = tf.init_lm(torch.Generator(device="cuda").manual_seed(SEED_M3),
+                        cfg, device="cuda")
+    prompt = torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED_M3_PROMPT))
+    return params, prompt
+
+
+def flash_counted(fa, what: str, want: int, run):
+    """`run()`, checking that it launched the flash kernel `want` times."""
+    before = fa.flash_attention.launches
+    out = run()
+    n = fa.flash_attention.launches - before
+    check(n == want, f"phase 12 {what}: flash_attention launched {n} times, "
+                     f"not {want}")
+    return out
+
+
+def finite_state(cache) -> bool:
+    """Every tensor of a decode cache (KV caches, recurrent states) is
+    finite; a recurrent state's m starts at -1e30, which is finite."""
+    from repro_torch.core.packets import tree_flatten
+
+    return all(bool(torch.isfinite(t).all()) for c in cache
+               for t in tree_flatten({k: v for k, v in c.items()
+                                      if k != "pos"})[0])
+
+
+def phase12_serve(fa, arch: str):
+    """(a) M3_BATCH prompts of M3_PROMPT ids through `make_prefill_step`
+    (cache prompt + M3_DECODE; one warm prefill, then the timed one) and
+    M3_DECODE greedy steps through `make_serve_step` (the first one warm,
+    the rest timed): finite logits and states, flash launched once per
+    layer per prefill for StarCoder2-15B (S <= window, hd 128) and never
+    for the others, and the last step's cached logits == a fresh
+    `forward_hidden` over prompt + the fed tokens within
+    DECODE_TOL_BF16 (xLSTM-125M: on its weights in float32 within
+    M3_F32_TOL, its bf16 error measured); then profiles one more
+    prefill.  Returns (params, measurements)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packets import tree_flatten
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params, prompt = m3_model(cfg, M3_BATCH, M3_PROMPT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    flash = cfg.num_layers if arch == "starcoder2-15b" else 0
+    cache_len = M3_PROMPT + M3_DECODE
+    prefill_step = make_prefill_step(cfg, cache_len=cache_len)
+    serve_step = make_serve_step(cfg)
+    batch = {"tokens": prompt}
+    flash_counted(fa, f"{arch} warm prefill", flash,
+                  lambda: prefill_step(params, batch))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = flash_counted(fa, f"{arch} prefill", flash,
+                                  lambda: prefill_step(params, batch))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()),
+          f"phase 12 (a): {arch} non-finite prefill logits")
+    tokens, logps, kept = [greedy(logits, cfg)], [], []
+    del logits
+    decode_step = tf.decode_step
+
+    def keeping(*args, **kw):       # the serve step's logits, kept
+        out = decode_step(*args, **kw)
+        kept[:] = [out[0]]
+        return out
+
+    tf.decode_step = keeping
+    try:
+        tok, lp, cache = serve_step(params, cache, tokens[-1])   # warm
+        tokens.append(tok)
+        logps.append(lp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(M3_DECODE - 1):
+            tok, lp, cache = serve_step(params, cache, tok)
+            tokens.append(tok)
+            logps.append(lp)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / (M3_DECODE - 1) * 1e3
+    finally:
+        tf.decode_step = decode_step
+    peak = torch.cuda.max_memory_allocated()
+    logps = torch.cat(logps, dim=1)
+    check(bool(torch.isfinite(logps).all()) and finite_state(cache),
+          f"phase 12 (a): {arch} non-finite log-probs or decode state")
+    check(all(c["pos"] == cache_len for c in cache if "pos" in c),
+          f"phase 12 (a): {arch} KV caches do not hold prompt + decoded "
+          f"tokens")
+    n_kv = sum("pos" in c for c in cache)
+    del cache
+    dec = kept.pop().float()
+    # the last step fed tokens[-2]: the fresh forward runs over the
+    # prompt and every token fed, prompt + M3_DECODE in all
+    seq = torch.cat([prompt] + [t.long() for t in tokens[:-1]], dim=1)
+    h, _ = flash_counted(fa, f"{arch} forward_hidden", flash,
+                         lambda: tf.forward_hidden(params, seq, cfg))
+    fresh = tf._lm_logits(params, h[:, -1:], cfg).float()
+    del h
+    tol16 = {"rtol": 0.0, "atol": DECODE_TOL_BF16}
+    scale = float(fresh.abs().max())
+    if arch in M3_F32_HELD:
+        err = float((dec - fresh).abs().max())
+        del dec, fresh
+        f32_err = m3_decode_f32(cfg, params, prompt, tokens[:-1])
+        held = (f"bf16 max |err| {err} (measured, not held), float32 "
+                f"(the same weights) max |err| {f32_err} (held: "
+                f"{M3_F32_TOL})")
+    else:
+        err, clear = held_to_fresh(dec, fresh, cfg, tol16, arch,
+                                   phase="phase 12 (a)")
+        del dec, fresh
+        held = (f"max |err| {err} (tolerance {tol16}), greedy tokens "
+                f"compared in {clear} of {M3_BATCH} requests (clear margin)")
+    kinds = Counter(tf.layer_kinds(cfg))
+    out = {"prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak,
+           "err": err}
+    print(f"phase 12 (a): {arch} {cfg.num_layers} layers "
+          f"({', '.join(f'{n} {k}' for k, n in kinds.items())}) d="
+          f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} hd="
+          f"{cfg.resolved_head_dim} window {cfg.window} vocab "
+          f"{cfg.vocab_size} bf16 ({n_params} parameters, drawn in "
+          f"{init_s:.3f} s), B={M3_BATCH} prompt {M3_PROMPT} cache "
+          f"{cache_len} ({n_kv} KV caches): prefill {prefill_s:.6f} s "
+          f"(synchronized, after a warm one), "
+          f"{M3_BATCH * M3_PROMPT / prefill_s:.1f} prompt tokens/s; "
+          f"{M3_DECODE} greedy serve steps, {M3_DECODE - 1} timed after a "
+          f"warm one: {decode_ms:.3f} ms/step, "
+          f"{M3_BATCH * 1e3 / decode_ms:.1f} tokens/s; "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); "
+          f"flash launches a prefill {flash}; tokens of request 0: "
+          f"{torch.cat(tokens, 1)[0, :8].tolist()}...; mean log-prob "
+          f"{float(logps.mean()):.4f}")
+    print(f"phase 12 (a): {arch} last decode step vs fresh forward_hidden "
+          f"over {seq.shape[1]} tokens, logits up to {scale}: {held}")
+    flash_counted(fa, f"{arch} traced prefill", flash, lambda: device_profile(
+        f"phase 12 (a) {arch} prefill", lambda: prefill_step(params, batch)))
+    return params, out
+
+
+def m3_decode_f32(cfg, params, prompt, fed: list) -> float:
+    """(a) on `params` cast to float32: prefill the prompt, decode the
+    fed tokens one at a time, and hold the last step's logits against a
+    fresh forward over the prompt and all of them within M3_F32_TOL;
+    returns the max |err|."""
+    from repro_torch.core.packets import tree_map
+    from repro_torch.models import transformer as tf
+
+    cfg32 = cfg.with_overrides(dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), params)
+    _, cache = tf.prefill(params32, prompt, cfg32,
+                          cache_len=prompt.shape[1] + len(fed))
+    for tok in fed:
+        dec, cache = tf.decode_step(params32, tok, cache, cfg32)
+    del cache
+    seq = torch.cat([prompt] + [t.long() for t in fed], dim=1)
+    h, _ = tf.forward_hidden(params32, seq, cfg32)
+    fresh = tf._lm_logits(params32, h[:, -1:], cfg32)
+    del h, params32
+    err = float((dec - fresh).abs().max())
+    check(torch.allclose(dec, fresh, **M3_F32_TOL),
+          f"phase 12 (a): {cfg.name} float32 cached decode logits differ "
+          f"from a fresh forward (max |err| {err}, tolerance {M3_F32_TOL})")
+    return err
+
+
+def phase12_long(fa, attn, params) -> dict:
+    """(b) StarCoder2-15B, one prompt of M3_LONG_PROMPT ids with
+    window=cfg.window given, so the cache is a ring of cfg.window slots
+    and each layer's prefill attention is `_attend_chunked` (S above
+    CHUNK_THRESHOLD and the window): no flash launch, one chunked call a
+    layer; then M3_LONG_DECODE serve steps; finite logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config("starcoder2-15b")
+    prompt = torch.randint(
+        0, cfg.vocab_size, (1, M3_LONG_PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED_M3_PROMPT))
+    cache_len = M3_LONG_PROMPT + M3_LONG_DECODE
+    prefill_step = make_prefill_step(cfg, cache_len=cache_len,
+                                     window=cfg.window)
+    serve_step = make_serve_step(cfg, window=cfg.window)
+    chunked, calls = attn._attend_chunked, []
+
+    def counting(*args, **kw):
+        calls.append(args[0].shape[1])
+        return chunked(*args, **kw)
+
+    attn._attend_chunked = counting
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = flash_counted(
+            fa, "long prefill", 0,
+            lambda: prefill_step(params, {"tokens": prompt}))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    finally:
+        attn._attend_chunked = chunked
+    check(calls == [M3_LONG_PROMPT] * cfg.num_layers,
+          f"phase 12 (b): _attend_chunked called for {calls}, not once per "
+          f"layer ({cfg.num_layers}) at {M3_LONG_PROMPT} tokens")
+    check(all(c["k"].shape[1] == cfg.window for c in cache),
+          "phase 12 (b): the caches are not rings of the window")
+    check(bool(torch.isfinite(logits).all()),
+          "phase 12 (b): non-finite prefill logits")
+    tok, lps = greedy(logits, cfg), []
+    t0 = time.perf_counter()
+    for _ in range(M3_LONG_DECODE):
+        tok, lp, cache = serve_step(params, cache, tok)
+        lps.append(lp)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / M3_LONG_DECODE * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    lps = torch.cat(lps, dim=1)
+    check(bool(torch.isfinite(lps).all()) and finite_state(cache),
+          "phase 12 (b): non-finite log-probs or cache")
+    check(all(c["pos"] == cache_len for c in cache),
+          "phase 12 (b): the caches do not count prompt + decoded tokens")
+    del cache
+    # q·kᵀ and P·V of every 512-query chunk against all S keys, per layer
+    flops = 4 * cfg.num_heads * cfg.resolved_head_dim * M3_LONG_PROMPT ** 2
+    print(f"phase 12 (b): {cfg.name} one prompt of {M3_LONG_PROMPT} tokens, "
+          f"window {cfg.window} given (a {cfg.window}-slot ring): prefill "
+          f"{prefill_s:.6f} s (synchronized; _attend_chunked once a layer, "
+          f"{flops / 1e12:.3f} TFLOP of float32 scores a layer, "
+          f"{cfg.num_layers * flops / prefill_s / 1e12:.3f} TFLOP/s of them "
+          f"over the whole prefill), {M3_LONG_PROMPT / prefill_s:.1f} "
+          f"prompt tokens/s; {M3_LONG_DECODE} serve steps {decode_ms:.3f} "
+          f"ms/step; max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); log-probs {lps[0].tolist()}")
+    return {"prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak}
+
+
+def phase12_train() -> None:
+    """(c) xLSTM-125M at full width as `examples/train_fl_lm.py --full`
+    runs it: `launch.train` with its defaults (K = 4, 8 x 128 tokens,
+    fednc_blocked, AdamW, remat), TRAIN_STEPS steps: finite losses, step
+    walls and tokens/s; then one more step under the profiler (device
+    busy share)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packets import tree_flatten
+    from repro_torch.data.tokens import make_token_stream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    cfg = get_config("xlstm-125m")
+    params = tf.init_lm(torch.Generator(device="cuda").manual_seed(SEED_M3),
+                        cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    torch.cuda.reset_peak_memory_stats()
+    run = train(cfg, params, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                seq=M3_TRAIN_SEQ, clients=TRAIN_CLIENTS, agg=TRAIN_AGG,
+                lr=TRAIN_LR, log_every=1,
+                log=lambda line: print(f"phase 12 (c): {line}"))
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(run.losses)),
+          f"phase 12 (c): non-finite losses {run.losses}")
+    tokens = TRAIN_BATCH * M3_TRAIN_SEQ
+    timed = run.step_s[1:]
+    print(f"phase 12 (c): {cfg.name} {cfg.num_layers} layers d="
+          f"{cfg.d_model} heads {cfg.num_heads} vocab {cfg.vocab_size} bf16 "
+          f"({n_params} parameters), K={TRAIN_CLIENTS}, {TRAIN_BATCH} x "
+          f"{M3_TRAIN_SEQ} tokens a step, adamw, remat, {TRAIN_AGG}: losses "
+          f"{run.losses}; step walls (synchronized) {run.step_s} s; after "
+          f"the first step {tokens * len(timed) / sum(timed):.1f} tokens/s "
+          f"({len(timed)} steps: {[round(tokens / t, 1) for t in timed]}); "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    step = make_train_step(cfg, adamw(linear_warmup_cosine(
+        TRAIN_LR, 10, TRAIN_STEPS)), num_clients=TRAIN_CLIENTS,
+        agg_mode=TRAIN_AGG)
+    b = make_token_stream(cfg.vocab_size, seed=1).batch(TRAIN_BATCH,
+                                                        M3_TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in b.items()}
+    gen = torch.Generator().manual_seed(SEED_MIX)
+    out = []
+    device_profile("phase 12 (c) train step", lambda: out.append(
+        step(run.params, run.opt_state, batch, gen)))
+    check(bool(torch.isfinite(out[0][2])),
+          "phase 12 (c): the traced step's loss is not finite")
+
+
+def phase12(fa, attn) -> None:
+    """Phase 12 (a)-(d), one model on the card at a time."""
+    t0 = time.perf_counter()
+    for arch in M3_ARCHS:
+        params, _ = phase12_serve(fa, arch)
+        if arch == "starcoder2-15b":
+            phase12_long(fa, attn, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase12_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("xlstm-125m", "recurrentgemma-9b"):
+        phase11_card_vs_cpu(arch, label="phase 12 (d)")
+    print(f"phase 12: {time.perf_counter() - t0:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2574,11 +2952,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     runs.append((phase11(fa, attn, wrappers, cfg, holder), None))
     torch.cuda.empty_cache()
+    runs.append(main_path("phase 12", wrappers, ("flash_attention",),
+                          lambda: phase12(fa, attn)))
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-11)")
+          + " (phases 2-12)")
     times["flash_attention"] = time_flash(fa, ref)
 
     gm_py = "src/repro/kernels/gf_matmul.py"

@@ -22,12 +22,10 @@ ARCHITECTURES = (
     "qwen2_72b",
     "qwen3_8b",
 )
-PORTED = ("qwen3_4b", "qwen3_8b", "qwen2_72b")
+PORTED = ("qwen3_4b", "qwen3_8b", "qwen2_72b", "xlstm_125m",
+          "recurrentgemma_9b", "starcoder2_15b")
 # where each unported architecture waits in ROADMAP.md §1
 _MILESTONE = {
-    "xlstm_125m": "M3 (the recurrent and windowed families)",
-    "recurrentgemma_9b": "M3 (the recurrent and windowed families)",
-    "starcoder2_15b": "M3 (the recurrent and windowed families)",
     "arctic_480b": "M4 (MoE and MLA)",
     "deepseek_v2_236b": "M4 (MoE and MLA)",
     "llama3_2_vision_90b": "M5 (cross-attention, encoders, frontends)",

@@ -7,14 +7,15 @@ client axis, and the decoded mean updates the global model (AdamW,
 linear warm-up over 10 steps then cosine).  Tokens come from the
 planted-bigram stream of `data.tokens` (seed 0).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
-        --reduced --steps 50 --batch 8 --seq 128 --agg fednc_blocked
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --steps 50 --batch 8 --seq 128 --agg fednc_blocked
 
-It runs on ``--device`` (``cuda`` by default; ``--device cpu`` runs the
+trains the default architecture, `xlstm-125m` (its reduced config);
+``--arch`` names another (`qwen3-4b`, `recurrentgemma-9b`, ...).  It
+runs on ``--device`` (``cuda`` by default; ``--device cpu`` runs the
 kernels' plain versions).  The mesh flags keep the reference's names
 but take only their one-device values (ROADMAP.md §1 M7 brings the
-mesh), and the reference's default architecture, `xlstm-125m`, waits
-for ROADMAP.md §1 M3.
+mesh).
 """
 from __future__ import annotations
 

@@ -1,18 +1,30 @@
 """Self-attention (GQA, RoPE, QK-norm, bias, sliding window) with the
 train / prefill / decode KV-cache paths.
 
-The port of the GQA part of `repro.models.attention`.  Causal attention
-without a window — every train and prefill call of a full-attention
-model — runs through the hand-written flash-attention kernel
-(`kernels.ops.flash_attention`), which indexes the KV head of each query
-head instead of expanding K and V; its backward is the exact gradient of
-`_attend` (`kernels.flash_attention.attention_backward`), so training
-through it gives q, k and v the reference's gradients.  `_attend`, the plain masked
-softmax in float32, stays for decode (one query against the ring-buffer
-cache, as the reference computes it outside any kernel) and for
-windowed prefill (unchunked: the reference's q-chunked form above 8,192
-tokens computes the same function and is not ported).  MLA and
-cross-attention are not ported yet.
+The port of the GQA part of `repro.models.attention`.  Train and
+prefill (causal, query i against keys j <= i, and with a window also
+j > i - window) take one of three routes, chosen per call
+(`_causal_attention`):
+
+- **the flash kernel** (`kernels.ops.flash_attention`) when the head
+  dim is one of its instances (`HEAD_DIMS`) and there is no window or
+  S <= window.  With S <= window the window's mask j > i - window is
+  vacuous (i - window < 0 <= j), so this is the same function as the
+  reference's windowed `_attend`.  The kernel indexes the KV head of
+  each query head instead of expanding K and V; its backward is the
+  exact gradient of `_attend` (`kernels.flash_attention.
+  attention_backward`), so training through it gives q, k and v the
+  reference's gradients;
+- **`_attend_chunked`** above CHUNK_THRESHOLD tokens otherwise, as the
+  reference: Q_CHUNK queries at a time against all S keys, so the
+  (S, S) scores never exist at once;
+- **`_attend`**, the plain masked softmax in float32, otherwise (a
+  window shorter than S, or a head dim the kernel has no instance for,
+  such as RecurrentGemma's 256).
+
+Decode is `_attend` of one query against the ring-buffer cache, as the
+reference computes it outside any kernel.  MLA and cross-attention are
+not ported yet.
 
 The KV cache is a dict {"k", "v": (B, slots, KV, hd), "pos": int}.
 Unlike the reference's functional update, prefill and decode write
@@ -28,11 +40,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 from .config import ModelConfig
 from .layers import apply_rope, dense_apply, dense_init, norm_apply, norm_init
 
 MASK_VALUE = -1e30
+CHUNK_THRESHOLD = 8192   # direct attention below, q-chunked above
+Q_CHUNK = 512
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -105,6 +120,34 @@ def _attend(q, k, v, *, causal: bool, window: Optional[int], q_offset,
     return out.to(q.dtype)
 
 
+def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
+                    chunk: int = 0) -> torch.Tensor:
+    """`_attend` with q_offset = 0, one chunk of queries at a time
+    against all keys, so the (S, S) scores never exist at once.  Each
+    query row is computed as in `_attend`; the reference pads the last
+    chunk with zero queries and slices them off, the port runs it
+    short.  K and V are made float32 once, not once a chunk."""
+    chunk = chunk or Q_CHUNK
+    kf, vf = k.float(), v.float()
+    return torch.cat([_attend(q[:, c0:c0 + chunk], kf, vf, causal=causal,
+                              window=window, q_offset=c0)
+                      for c0 in range(0, q.shape[1], chunk)], dim=1)
+
+
+def _causal_attention(q, k, v, *, window: Optional[int]) -> torch.Tensor:
+    """Train / prefill attention of (B, S, H, hd) queries against
+    (B, S, KV, hd) keys and values: the flash kernel, `_attend_chunked`
+    or `_attend`, as the module's docstring says."""
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    if hd in HEAD_DIMS and (window is None or S <= window):
+        return ops.flash_attention(q, k, v, causal=True)
+    groups = H // k.shape[2]
+    kf, vf = _expand_kv(k, groups), _expand_kv(v, groups)
+    if S > CHUNK_THRESHOLD:
+        return _attend_chunked(q, kf, vf, causal=True, window=window)
+    return _attend(q, kf, vf, causal=True, window=window, q_offset=0)
+
+
 # ---------------------------------------------------------------------------
 # self-attention: train / prefill / decode
 # ---------------------------------------------------------------------------
@@ -149,11 +192,7 @@ def apply_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None or S > 1:
-        if window is None:
-            out = ops.flash_attention(q, k, v, causal=True)
-        else:
-            out = _attend(q, _expand_kv(k, groups), _expand_kv(v, groups),
-                          causal=True, window=window, q_offset=0)
+        out = _causal_attention(q, k, v, window=window)
         new_cache = None
         if cache is not None:       # prefill: persist the (ring) tail
             new_cache = _fill_cache(cache, k, v, S)

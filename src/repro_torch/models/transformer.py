@@ -1,16 +1,19 @@
 """Model assembly: the decoder stack, prefill / decode caches, the LM
 and its loss.
 
-The port of `repro.models.transformer` for the ``"dense"`` block (GQA
-self-attention + dense MLP), which is every layer of Qwen3-4B, Qwen3-8B
-and Qwen2-72B.  Other block kinds, encoders and frontends are not
-ported yet and raise.
+The port of `repro.models.transformer` for the block kinds ``"dense"``
+(GQA self-attention + dense MLP: Qwen3-4B, Qwen3-8B, Qwen2-72B,
+StarCoder2-15B), ``"local"`` (the same with the config's sliding window:
+RecurrentGemma's attention layers), ``"rglru"`` (RG-LRU + dense MLP),
+``"mlstm"`` and ``"slstm"`` (xLSTM's blocks, `models.ssm`).  MoE, MLA,
+cross-attention, encoders and frontends are not ported yet and raise.
 
 The reference stacks the repeated groups' parameters and runs them with
 `lax.scan`; the port keeps one parameter dict per layer in
 ``params["decoder"]`` (a list in layer order: prefix, the groups
 unrolled, suffix) and runs them in a Python loop.  Decode caches are a
-list of per-layer caches in the same order.
+list of per-layer caches in the same order: a KV cache (a dict with
+"pos") for attention blocks, the recurrent state dict for the others.
 `lm_params_from_jax` carries a reference `init_lm` tree across.
 
 Modes:
@@ -19,7 +22,7 @@ Modes:
              backward pass (`torch.utils.checkpoint`, the reference's
              `jax.checkpoint` of its scan body)
   prefill  — full sequence, fills decode caches, returns last logits
-  decode   — one token through the ring-buffer caches
+  decode   — one token through the ring-buffer and recurrent caches
 """
 from __future__ import annotations
 
@@ -28,14 +31,17 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.packets import params_from_jax, tree_map
+from repro_torch.core.packets import params_from_jax
 
 from . import attention as attn
+from . import ssm
 from .config import ModelConfig
 from .layers import (dense_apply, dense_init, embed_apply, embed_init,
                      mlp_apply, mlp_init, norm_apply, norm_init)
 
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "local", "rglru", "mlstm", "slstm")
+# leaves the reference keeps in float32 whatever the model's dtype
+FLOAT32_LEAVES = ("lam",)
 LOSS_CHUNK = 512    # seq positions per LM-head chunk (bounds logits memory)
 
 
@@ -43,9 +49,8 @@ def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported to repro_torch yet "
-            f"(ported: {PORTED_KINDS}); see ROADMAP.md §1 M3 (recurrent "
-            f"and windowed), M4 (MoE, MLA) and M5 (cross-attention, "
-            f"encoders)")
+            f"(ported: {PORTED_KINDS}); see ROADMAP.md §1 M4 (MoE, MLA) "
+            f"and M5 (cross-attention, encoders)")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -64,9 +69,15 @@ def init_block(g: torch.Generator, kind: str, cfg: ModelConfig,
     _check_kind(kind)
     d = cfg.d_model
     kw = {"dtype": cfg.dtype, "device": device}
+    if kind in ("mlstm", "slstm"):
+        init = ssm.init_mlstm if kind == "mlstm" else ssm.init_slstm
+        return {"ln": norm_init(d, cfg.norm, **kw),
+                "core": init(g, cfg, device=device)}
+    mixer = ({"rglru": ssm.init_rglru(g, cfg, device)} if kind == "rglru"
+             else {"attn": attn.init_self_attention(g, cfg, device)})
     return {
         "ln1": norm_init(d, cfg.norm, **kw),
-        "attn": attn.init_self_attention(g, cfg, device),
+        **mixer,
         "ln2": norm_init(d, cfg.norm, **kw),
         "mlp": mlp_init(g, d, cfg.d_ff, cfg.act, **kw),
     }
@@ -74,8 +85,19 @@ def init_block(g: torch.Generator, kind: str, cfg: ModelConfig,
 
 def make_block_cache(kind: str, cfg: ModelConfig, batch: int,
                      cache_len: int, window: Optional[int], device="cuda"):
-    """Empty decode cache for one block."""
+    """Empty decode cache for one block.  A ``dense`` block's KV cache is
+    sized by `window` (prefill's argument), not by the config's window,
+    as the reference's (ROADMAP.md §3 R7); a ``local`` block's is a ring
+    of ``window or cfg.window`` slots."""
     _check_kind(kind)
+    if kind == "rglru":
+        return ssm.make_rglru_state(cfg, batch, device)
+    if kind == "mlstm":
+        return ssm.make_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return ssm.make_slstm_state(cfg, batch, device)
+    if kind == "local":
+        window = window or cfg.window
     return attn.make_kv_cache(cfg, batch, cache_len, window, device)
 
 
@@ -83,10 +105,19 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 cache=None, window: Optional[int] = None):
     """Returns (x, new_cache)."""
     _check_kind(kind)
-    win = window or cfg.window   # explicit override > config window
-    h, new_c = attn.apply_self_attention(
-        p["attn"], norm_apply(p["ln1"], x, cfg.norm), cfg, window=win,
-        cache=cache)
+    if kind in ("mlstm", "slstm"):
+        apply = ssm.apply_mlstm if kind == "mlstm" else ssm.apply_slstm
+        h, new_c = apply(p["core"], norm_apply(p["ln"], x, cfg.norm), cfg,
+                         state=cache)
+        return x + h, new_c
+    if kind == "rglru":
+        h, new_c = ssm.apply_rglru(
+            p["rglru"], norm_apply(p["ln1"], x, cfg.norm), cfg, state=cache)
+    else:
+        win = window or cfg.window   # explicit override > config window
+        h, new_c = attn.apply_self_attention(
+            p["attn"], norm_apply(p["ln1"], x, cfg.norm), cfg, window=win,
+            cache=cache)
     x = x + h
     y = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.act)
     return x + y, new_c
@@ -144,8 +175,9 @@ def _check_lm(cfg: ModelConfig) -> None:
 
 def init_lm(g: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
     """Random LM parameters with the reference's scales (dense
-    1/sqrt(d_in), embedding 0.02, norm scales one), drawn from `g`,
-    which must live on `device`."""
+    1/sqrt(d_in), embedding 0.02, norm scales one; RG-LRU's ``lam``
+    float32, uniform on [3, 8)), drawn from `g`, which must live on
+    `device`."""
     _check_lm(cfg)
     kw = {"dtype": cfg.dtype, "device": device}
     p = {
@@ -165,7 +197,9 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
 
     The leading group axis of ``decoder.scan`` is unstacked into one dict
     per layer; float leaves are cast to ``cfg.dtype`` (bf16 bits stay
-    exact: a uint16 view is reinterpreted, not converted)."""
+    exact: a uint16 view is reinterpreted, not converted), except those
+    the reference keeps in float32 whatever the model's dtype
+    (FLOAT32_LEAVES: RG-LRU's ``lam``), which stay float32."""
     _check_lm(cfg)
 
     def index(x, gi):
@@ -186,8 +220,20 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
            "final_norm": tree["final_norm"]}
     if "lm_head" in tree:
         out["lm_head"] = tree["lm_head"]
-    return tree_map(lambda t: t.to(cfg.dtype) if t.is_floating_point() else t,
-                    params_from_jax(out, device, bf16_bits=True))
+    return _cast_floats(params_from_jax(out, device, bf16_bits=True),
+                        cfg.dtype)
+
+
+def _cast_floats(tree, dtype, name: str = ""):
+    """`tree` with its float leaves cast to `dtype`, and those named in
+    FLOAT32_LEAVES to float32."""
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, dtype) for v in tree)
+    if not tree.is_floating_point():
+        return tree
+    return tree.to(torch.float32 if name in FLOAT32_LEAVES else dtype)
 
 
 def _lm_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
@@ -200,7 +246,7 @@ def _lm_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                    window=None, remat: bool = False):
     """tokens (B, S) -> (final-normed hidden states (B, S, d), aux loss);
-    the aux loss is 0 for dense blocks."""
+    the aux loss is 0: no ported block has one."""
     x = embed_apply(params["embed"], tokens)
     x, _ = apply_decoder_stack(params["decoder"], x, cfg, window=window,
                                remat=remat)

@@ -12,7 +12,12 @@ at the new tile's ragged and exact edges; the float32 plain version
 still on the 64 x 32 tiles, bit for bit; the wrapper's TMA alignment
 test; the port's `_attend` with a window and `kv_len`; and
 `apply_self_attention` in train, prefill and decode mode on a float32
-override of the reduced Qwen3-4B, with the reference's weights.
+override of the reduced Qwen3-4B, with the reference's weights; the
+train / prefill routes (the flash kernel while S <= window and the head
+dim is an instance, `_attend_chunked` above CHUNK_THRESHOLD, `_attend`
+otherwise) and `_attend_chunked` against the reference's; and the
+reference's fault R7, which the port copies: a ``dense`` block's cache
+ignores ``cfg.window`` (the reduced StarCoder2-15B).
 
 Tolerances as `tests/test_kernels.py`: float32 rtol = atol = 2e-4
 (summation order), bf16 rtol = atol = 5e-2 (one bf16 rounding of the
@@ -306,3 +311,135 @@ def test_apply_self_attention_prefill_then_decode_matches_reference(
         assert tc["pos"] == int(jc["pos"]) == S + step + 1
         np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]),
                                    **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# windowed and chunked routes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window,chunk", [(None, 16), (9, 16), (9, 7)])
+def test_attend_chunked_matches_reference(J, window, chunk):
+    """`_attend_chunked` against the reference's at a small chunk: with
+    and without a window, S a multiple of the chunk and ragged (the
+    reference pads the last chunk, the port runs it short)."""
+    q, k, v = _qkv(21, 2, 48, 4, 4, 16)
+    want = J.attn._attend_chunked(J.jnp.asarray(q), J.jnp.asarray(k),
+                                  J.jnp.asarray(v), causal=True,
+                                  window=window, chunk=chunk)
+    got = tattn._attend_chunked(_t(q), _t(k), _t(v), causal=True,
+                                window=window, chunk=chunk)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def _count_flash(monkeypatch):
+    """Count `ops.flash_attention` calls from the attention module (the
+    CPU wrapper launches nothing, so its own count stays 0)."""
+    calls = []
+    real = tops.flash_attention
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tattn.ops, "flash_attention", counted)
+    return calls
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_apply_self_attention_above_the_threshold_matches_reference(
+        J, layer, monkeypatch, window):
+    """Above CHUNK_THRESHOLD (set to 16 in both modules for the test)
+    a windowed prefill takes `_attend_chunked` in both packages; without
+    a window the port takes the flash kernel, whose function is the
+    same.  Outputs and the filled cache against the reference's."""
+    monkeypatch.setattr(J.attn, "CHUNK_THRESHOLD", 16)
+    monkeypatch.setattr(tattn, "CHUNK_THRESHOLD", 16)
+    monkeypatch.setattr(tattn, "Q_CHUNK", 16)
+    monkeypatch.setattr(J.attn, "Q_CHUNK", 16)
+    chunked = []
+    real = tattn._attend_chunked
+    monkeypatch.setattr(tattn, "_attend_chunked",
+                        lambda *a, **kw: chunked.append(1) or real(*a, **kw))
+    flash = _count_flash(monkeypatch)
+    B, S = 2, 40
+    x = _x(22, B, S)
+    jc = J.attn.make_kv_cache(layer.jcfg, B, S + 2, window)
+    tc = tattn.make_kv_cache(layer.tcfg, B, S + 2, window, device="cpu")
+    want, jc = J.attn.apply_self_attention(layer.jp, J.jnp.asarray(x),
+                                           layer.jcfg, window=window,
+                                           cache=jc)
+    got, tc = tattn.apply_self_attention(layer.tp, _t(x), layer.tcfg,
+                                         window=window, cache=tc)
+    assert (len(chunked), len(flash)) == ((1, 0) if window else (0, 1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   **F32_TOL)
+
+
+@pytest.mark.parametrize("S,window,route", [
+    (24, 24, "flash"),        # S == window: the window's mask is vacuous
+    (17, 24, "flash"),
+    (25, 24, "attend"),       # S > window: the window masks keys
+])
+def test_window_route_matches_attend_with_the_window(J, layer, monkeypatch,
+                                                     S, window, route):
+    """Train with a window: the port's route (flash while S <= window,
+    `_attend` above) equals the reference's `_attend` with the window."""
+    flash = _count_flash(monkeypatch)
+    x = _x(23 + S, 2, S)
+    want, _ = J.attn.apply_self_attention(layer.jp, J.jnp.asarray(x),
+                                          layer.jcfg, window=window)
+    got, _ = tattn.apply_self_attention(layer.tp, _t(x), layer.tcfg,
+                                        window=window)
+    assert len(flash) == (route == "flash")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_head_dim_without_a_kernel_instance_takes_attend(J, monkeypatch):
+    """A head dim the flash kernel has no instance for (RecurrentGemma's
+    256; 48 here) takes `_attend`, also without a window."""
+    flash = _count_flash(monkeypatch)
+    q, k, v = _qkv(24, 2, 20, 4, 2, 48)
+    got = tattn._causal_attention(_t(q), _t(k), _t(v), window=None)
+    assert flash == []
+    np.testing.assert_allclose(got.numpy(), _oracle(J, q, k, v), **F32_TOL)
+
+
+def test_dense_cache_ignores_the_config_window_as_the_reference_r7(J):
+    """R7 (ROADMAP.md §3), copied: a ``dense`` block's cache is sized by
+    prefill's `window` argument, not by ``cfg.window``, so with
+    ``window=None`` and a prompt longer than the config's window (the
+    reduced StarCoder2-15B's 64) cached decode attends every slot while
+    a fresh forward applies the window.  The port decodes as the
+    reference does, and both differ from the fresh forward."""
+    from repro.models import transformer as jtf
+    from repro.models.layers import norm_apply as jnorm
+
+    from repro_torch.models import transformer as ttf
+    jcfg = J.configs.reduced_config("starcoder2_15b").with_overrides(
+        dtype=J.jnp.float32)
+    tcfg = tconfigs.reduced_config("starcoder2_15b").with_overrides(
+        dtype=torch.float32)
+    assert tcfg.window == 64
+    jparams = jtf.init_lm(J.jax.random.PRNGKey(5), jcfg)
+    tparams = ttf.lm_params_from_jax(
+        J.jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
+    S = 70
+    toks = np.random.default_rng(25).integers(
+        0, tcfg.vocab_size, (1, S + 1)).astype(np.int32)
+    _, jcache = jtf.prefill(jparams, J.jnp.asarray(toks[:, :S]), jcfg,
+                            cache_len=S + 1)
+    _, tcache = ttf.prefill(tparams, torch.from_numpy(toks[:, :S]).long(),
+                            tcfg, cache_len=S + 1)
+    assert all(c["k"].shape[1] == S + 1 for c in tcache)
+    jdec, _ = jtf.decode_step(jparams, J.jnp.asarray(toks[:, S:]), jcache,
+                              jcfg)
+    tdec, _ = ttf.decode_step(tparams, torch.from_numpy(toks[:, S:]).long(),
+                              tcache, tcfg)
+    np.testing.assert_allclose(tdec.numpy(), np.asarray(jdec), **F32_TOL)
+    h, _ = jtf.forward_hidden(jparams, J.jnp.asarray(toks), jcfg)
+    fresh = np.asarray(jtf._lm_logits(
+        jparams, jnorm(jparams["final_norm"], h[:, -1:], jcfg.norm), jcfg))
+    assert np.abs(np.asarray(jdec) - fresh).max() > 1e-2

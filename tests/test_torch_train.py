@@ -3,11 +3,14 @@
 Covered: `float_inv` and `aggregate_gradients` (every mode, with and
 without `code_in_bf16`, float32 and bf16 leaves, a leaf whose size is
 not a multiple of K) on the reference's own mixing matrix; `lm_loss`
-and its gradient on every leaf of the reduced Qwen3-4B, Qwen3-8B and
-Qwen2-72B in float32 and bf16 (labels with -1, S = 520, not a multiple
-of LOSS_CHUNK) with the reference's weights, and remat on == off
-exactly; one `make_train_step` step per mode with the reference's A;
-the driver `launch.train`; the checkpoint format; and the flash
+and its gradient on every leaf of the reduced Qwen3-4B, Qwen3-8B,
+Qwen2-72B, xLSTM-125M and RecurrentGemma-9B in float32 and bf16 (labels
+with -1, S = 520, not a multiple of LOSS_CHUNK) with the reference's
+weights, and remat on == off exactly; one `make_train_step` step per
+mode with the reference's A, and a `fednc_blocked` step of the reduced
+xLSTM-125M; the driver `launch.train`, with no `--arch` its default
+xLSTM-125M; AdamW, the aggregation and the checkpoint on RG-LRU's
+float32 ``lam`` among bf16 leaves; the checkpoint format; and the flash
 attention Function's backward against autodiff of the reference's
 `_attend`.
 
@@ -37,7 +40,8 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import sgd as tsgd
 
-ARCHS = ("qwen3_4b", "qwen3_8b", "qwen2_72b")
+ARCHS = ("qwen3_4b", "qwen3_8b", "qwen2_72b", "xlstm_125m",
+         "recurrentgemma_9b")
 # float32 against the reference: summation order only (measured: at
 # most 3.1e-6 of a leaf's largest gradient)
 F32_GRAD = dict(rtol=1e-4, scale=1e-5)
@@ -45,6 +49,11 @@ F32_GRAD = dict(rtol=1e-4, scale=1e-5)
 # (measured: at most 2.7% of a leaf's largest gradient)
 BF16_GRAD = dict(rtol=0.05, scale=0.05)
 S_LOSS = 520          # one full LOSS_CHUNK and a ragged one
+# xLSTM's loss runs its sLSTM step by step over S on both sides; at
+# S_LOSS that one case took ~200 s of a loaded test run, so it runs at
+# S_SLSTM (the LM head's chunks are covered at S_LOSS by the others, the
+# mLSTM's chunks and their gradient by tests/test_torch_ssm.py)
+S_SLSTM = 40
 
 
 @pytest.fixture(scope="module")
@@ -239,12 +248,14 @@ def _port_loss_and_grads(params, batch, cfg, remat=True):
 def test_lm_loss_and_grads_match_reference(J, arch, name):
     """`lm_loss` and its gradient on every leaf against
     `jax.value_and_grad` of the reference's (remat on both sides), S =
-    520 with ignored labels.  float32: the loss to 1e-6 relative, each
+    520 (xLSTM-125M: S_SLSTM) with ignored labels.  float32:
+    the loss to 1e-6 relative, each
     gradient leaf to F32_GRAD; bf16: the loss to 1e-3 relative (it is
     summed in float32 from logits of one bf16 head product), each leaf
     to BF16_GRAD."""
     m = _model(J, arch, name)
-    batch = _lm_batch(m.tcfg, 2, S_LOSS, seed=1)
+    batch = _lm_batch(m.tcfg, 2, S_SLSTM if arch == "xlstm_125m"
+                      else S_LOSS, seed=1)
     (jloss, jparts), jgrads = J.jax.value_and_grad(
         lambda p: J.tf.lm_loss(p, {k: J.jnp.asarray(v)
                                    for k, v in batch.items()}, m.jcfg),
@@ -260,7 +271,7 @@ def test_lm_loss_and_grads_match_reference(J, arch, name):
     tol = F32_GRAD if name == "f32" else BF16_GRAD
     assert len(grads) == len(want)
     for i, (g, w) in enumerate(zip(grads, want, strict=True)):
-        assert g.dtype == m.tcfg.dtype and g.shape == w.shape
+        assert g.dtype == w.dtype and g.shape == w.shape
         _close_to_scale(g, w, **tol, what=f"leaf {i}")
 
 
@@ -269,6 +280,20 @@ def test_lm_loss_remat_changes_nothing(J, name):
     """remat recomputes the same operations: loss and every gradient
     are bit for bit those without it."""
     m = _model(J, "qwen3_4b", name)
+    batch = _lm_batch(m.tcfg, 2, 40, seed=2)
+    on = _port_loss_and_grads(m.tparams, batch, m.tcfg, remat=True)
+    off = _port_loss_and_grads(m.tparams, batch, m.tcfg, remat=False)
+    assert torch.equal(on[0], off[0])
+    for a, b in zip(on[2], off[2], strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "recurrentgemma_9b"])
+def test_lm_loss_remat_changes_nothing_through_recurrent_blocks(J, arch):
+    """Checkpointing recomputes the recurrent blocks (the sLSTM's loop,
+    the chunkwise mLSTM, the RG-LRU scan) with the same operations: loss
+    and every gradient bit for bit those without remat (float32)."""
+    m = _model(J, arch, "f32")
     batch = _lm_batch(m.tcfg, 2, 40, seed=2)
     on = _port_loss_and_grads(m.tparams, batch, m.tcfg, remat=True)
     off = _port_loss_and_grads(m.tparams, batch, m.tcfg, remat=False)
@@ -291,16 +316,12 @@ def test_lm_loss_ignores_all_masked_labels(J):
 # the train step and the driver
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode", tsteps.AGG_MODES)
-def test_train_step_matches_reference(J, mode):
-    """One step of the reduced Qwen3-4B in float32, K = 4 clients of a
+def _check_train_step(J, arch, mode):
+    """One step of the reduced `arch` in float32, K = 4 clients of a
     global batch of 8 x 24, the reference's A: the mean client loss to
     1e-6 relative and every parameter after the step to F32_GRAD's
-    share of its scale.  SGD (lr 0.5), so the step moves each weight
-    by its aggregated gradient: Adam's first step is sign(g)·lr, where
-    a gradient within rounding of zero could flip between two correct
-    float32 programs."""
-    m = _model(J, "qwen3_4b", "f32")
+    share of its scale."""
+    m = _model(J, arch, "f32")
     K, key = 4, J.jax.random.PRNGKey(7)
     batch = _lm_batch(m.tcfg, 8, 24, seed=4)
     jstep = J.steps.make_train_step(m.jcfg, J.sgd(0.5), num_clients=K,
@@ -323,6 +344,22 @@ def test_train_step_matches_reference(J, mode):
     for i, (p, w) in enumerate(zip(tpackets.tree_flatten(params)[0], want,
                                    strict=True)):
         _close_to_scale(p, w, **F32_GRAD, what=f"leaf {i}")
+
+
+@pytest.mark.parametrize("mode", tsteps.AGG_MODES)
+def test_train_step_matches_reference(J, mode):
+    """One step of the reduced Qwen3-4B per aggregation mode
+    (`_check_train_step`).  SGD (lr 0.5), so the step moves each weight
+    by its aggregated gradient: Adam's first step is sign(g)·lr, where
+    a gradient within rounding of zero could flip between two correct
+    float32 programs."""
+    _check_train_step(J, "qwen3_4b", mode)
+
+
+def test_xlstm_train_step_matches_reference(J):
+    """One `fednc_blocked` step of the reduced xLSTM-125M (an mLSTM and
+    an sLSTM block), as `test_train_step_matches_reference`."""
+    _check_train_step(J, "xlstm_125m", "fednc_blocked")
 
 
 def test_client_gradients_split_the_batch():
@@ -411,8 +448,56 @@ def test_train_driver_runs_on_the_cpu(tmp_path, capsys):
     assert manifest["metadata"] == {"arch": "qwen3-4b-smoke", "steps": 3}
 
 
+def test_train_driver_defaults_to_xlstm_125m(capsys):
+    """`python -m repro_torch.launch.train --reduced --device cpu
+    --steps 2`, with no --arch, trains the reference's default
+    architecture, the reduced xLSTM-125M (K = 4, fednc_blocked): two
+    finite losses.  A global batch of 4 x 16 tokens keeps the sLSTM's
+    sequential loop short here."""
+    run = ttrain.main(["--reduced", "--device", "cpu", "--steps", "2",
+                       "--batch", "4", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert ("arch=xlstm-125m-smoke device=cpu agg=fednc_blocked clients=4"
+            in out)
+    assert len(run.losses) == 2 and all(np.isfinite(run.losses))
+    assert run.opt_state.step == 2
+
+
+def test_adamw_aggregation_and_checkpoint_keep_lam_float32(tmp_path):
+    """RG-LRU's float32 ``lam`` among bf16 leaves: one AdamW
+    `fednc_blocked` step of the reduced RecurrentGemma-9B keeps every
+    leaf's dtype and moves ``lam`` by Adam's first step (~lr, far below
+    bf16's step of 0.03125 at lam's magnitude, so a bf16 lam would not
+    move), and `save_pytree` / `load_pytree` round-trip the trained tree
+    bit for bit."""
+    from repro_torch.optim import adamw
+    cfg = tconfigs.reduced_config("recurrentgemma-9b")
+    params = ttf.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in _lm_batch(cfg, 4, 16, seed=6).items()}
+    opt = adamw(1e-3)
+    step = tsteps.make_train_step(cfg, opt, num_clients=2,
+                                  agg_mode="fednc_blocked")
+    new, _, loss = step(params, opt.init(params), batch,
+                        torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(loss))
+    for a, b in zip(tpackets.tree_flatten(params)[0],
+                    tpackets.tree_flatten(new)[0], strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+    lam0 = params["decoder"][0]["rglru"]["lam"]
+    lam1 = new["decoder"][0]["rglru"]["lam"]
+    assert lam1.dtype == torch.float32
+    moved = (lam1 - lam0).abs()
+    assert 0 < float(moved.max()) < 2e-3
+    save_pytree(str(tmp_path / "rg"), new)
+    back = load_pytree(str(tmp_path / "rg"), new)
+    for a, b in zip(tpackets.tree_flatten(back)[0],
+                    tpackets.tree_flatten(new)[0], strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("argv, exc, match", [
-    ([], NotImplementedError, "ROADMAP.md §1 M3"),          # xlstm-125m
+    (["--arch", "arctic-480b"], NotImplementedError, "ROADMAP.md §1 M4"),
     (["--arch", "qwen3-4b", "--reduced", "--mesh-model", "2"], ValueError,
      "ROADMAP.md §1 M7"),
     (["--arch", "qwen3-4b", "--reduced", "--mesh-data", "4"], ValueError,
