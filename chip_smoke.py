@@ -161,6 +161,31 @@ failing on the first wrong result:
    float32 step of the reduced xLSTM-125M and of the reduced
    RecurrentGemma-9B on the card and on the CPU: per-client and
    aggregated gradients within rtol 1e-4 plus 1e-5 of each leaf's scale.
+13. cross-attention, encoders and stub frontends (after phase 12), one
+   model on the card at a time, bf16 weights at the reference's scales
+   from a seed, every xattn gate set to 1.0 after init (at 0, as
+   initialised, tanh(0) = 0 would hide the image), memory embeddings
+   random from a seed (the frontends are stubs in the reference too):
+   (a) Llama-3.2-Vision-90B at full width (d 8,192, 64/8 heads, hd 128,
+   d_ff 28,672, vocab 128,256) on 20 of its 100 layers (4 groups of 4
+   dense + 1 xattn), 4 prompts of 2,048 ids with 4 x 4,096 projected
+   patch embeddings through `make_prefill_step` (cache 2,080; a warm
+   prefill, then the timed one) and 32 greedy steps through
+   `make_serve_step`; (b) SeamlessM4T-medium at full width and depth (12
+   encoder + 12 decoder layers), 4 utterances of 2,048 frame embeddings
+   and decoder prompts of 128 ids, then 32 greedy steps.  In each:
+   finite logits and caches, the flash kernel launched once per
+   self-attention layer per forward (16; 12 + 12) and never for
+   cross-attention, the last step's cached logits equal to a fresh
+   `forward_hidden` over the grown sequence with the same memory (the
+   encoder re-run) within 0.25, and other memory embeddings moving the
+   prefill's logits; it prints the prefill wall, prompt tokens/s, decode
+   ms per step and `max_memory_allocated` beside the card's name and
+   power limit, and profiles the last serve step and one more prefill
+   (flash's time a launch);
+   (c) the reduced configs in float32 on the same weights, prefill and 4
+   decode steps on the card and on the CPU: logits within rtol = atol =
+   1e-3.
 
 Phase 1 also holds the packed kernel's batched instance against its
 plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
@@ -169,7 +194,7 @@ and the flash-attention kernel against its plain version
 in float32 and bf16: head_dim 32, 64, 128, GQA groups 1 and 4, S = 1,
 ragged S (100, 2049), the bf16 kernel's 128-key tile edges (129, 256,
 300), non-causal, strided views, views TMA cannot read in place (each
-still one launch) and phase 7's shape.  After the build it prints
+still one launch) and the prefill shapes of phases 7, 11 and 13.  After the build it prints
 ptxas' registers and spills of every kernel instance, the SASS census
 of the GF kernels' s = 8 instances and of the XOR kernel's 8-row
 instance, whole and of their hottest basic block, the step of a full
@@ -177,7 +202,7 @@ tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
 and global loads by width; the selects per word and packet row) and the
 count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
-Each of phases 2-12 (each run of phase 9; phase 11's training run)
+Each of phases 2-13 (each run of phase 9; phase 11's training run)
 drives the main path with every
 launch count set to 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
@@ -191,7 +216,7 @@ kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-12), error, time, plain time and bound.  The last line is
+2-13), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -352,6 +377,26 @@ M3_F32_HELD = ("xlstm-125m",)
 M3_F32_TOL = {"rtol": 0.0, "atol": 1e-2}
 SEED_M3 = 22                     # weights, drawn on the card
 SEED_M3_PROMPT = 23              # prompt token ids
+# phase 13: cross-attention, encoders and stub frontends, one model on the
+# card at a time, bf16 weights at the reference's scales from a seed.
+# Llama-3.2-Vision-90B at full width on 20 of its 100 layers (4 groups of
+# 4 dense + 1 xattn: 19.21B parameters, 38.4 GB; all 100 would be 175
+# GB); SeamlessM4T-medium at full width and depth.  The frontends are
+# stubs in the reference too: the memory is random embeddings from a seed
+M5_VISION, M5_SEAMLESS = "llama-3.2-vision-90b", "seamless-m4t-medium"
+M5_VISION_LAYERS = 20
+M5_BATCH = 4
+M5_VISION_PROMPT = 2048
+M5_SEAMLESS_FRAMES = 2048        # the audio rule: sequence length = frames
+M5_SEAMLESS_PROMPT = 128
+M5_DECODE = 32                   # greedy steps; the cache holds prompt + these
+# the xattn gates start at 0 (tanh(0) = 0 hides the image): set to 1.0
+# (tanh = 0.76) after init, so the image layers add to the residual stream
+M5_GATE = 1.0
+M5_F32_DECODE = 4                # (c): decode steps of the card-vs-CPU run
+SEED_M5 = 24                     # weights, drawn on the card
+SEED_M5_PROMPT = 25              # prompt token ids
+SEED_M5_MEMORY = 26              # memory embeddings; SEED_M5_MEMORY + 1 the others
 # (d): counts and rates must equal the fixture exactly.  The simulated
 # clock's fields (time_*) are sums of ~300 gaps scaled by slowness
 # factors normalized by a mean over 10^6 clients, and numpy builds differ
@@ -655,7 +700,12 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
         tol = FLASH_TOL[dtype]
         shapes = cases + ([(QWEN_BATCH, QWEN_PROMPT, 32, 8, 128, True, 0),
                            (TRAIN_BATCH // TRAIN_CLIENTS, TRAIN_SEQ, 32, 8,
-                            128, True, 0)]
+                            128, True, 0),
+                           # phase 13's prefills: Llama-3.2-Vision-90B's
+                           # dense layers, SeamlessM4T-medium's encoder
+                           (M5_BATCH, M5_VISION_PROMPT, 64, 8, 128, True, 0),
+                           (M5_BATCH, M5_SEAMLESS_FRAMES, 16, 16, 64, True,
+                            0)]
                           if dtype == torch.bfloat16 else [])
         worst[dtype] = used[dtype] = 0.0
         for B, S, H, KV, hd, causal, pad in shapes:
@@ -692,7 +742,8 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
                 check(torch.allclose(got, plain, **tol),
                       f"flash_attention {what} differs from _attend")
     print(f"phase 1: flash_attention == plain version, {len(cases)} shapes "
-          f"in each dtype + the phase-7 and phase-11 shapes in bf16 (hd "
+          f"in each dtype + the phase-7, phase-11 and phase-13 shapes in "
+          f"bf16 (hd "
           f"32/64/128, groups "
           f"1 and 4, S 1/100/129/256/300/2049, non-causal S=256, strided "
           f"views, views TMA cannot read in place): "
@@ -2284,24 +2335,26 @@ def m3_model(cfg, batch: int, prompt_len: int):
     return params, prompt
 
 
-def flash_counted(fa, what: str, want: int, run):
+def flash_counted(fa, what: str, want: int, run, phase: str = "phase 12"):
     """`run()`, checking that it launched the flash kernel `want` times."""
     before = fa.flash_attention.launches
     out = run()
     n = fa.flash_attention.launches - before
-    check(n == want, f"phase 12 {what}: flash_attention launched {n} times, "
+    check(n == want, f"{phase} {what}: flash_attention launched {n} times, "
                      f"not {want}")
     return out
 
 
 def finite_state(cache) -> bool:
-    """Every tensor of a decode cache (KV caches, recurrent states) is
+    """Every tensor of a decode cache (a list of KV caches, recurrent
+    states and cross caches, nested dicts; "pos" ints skipped) is
     finite; a recurrent state's m starts at -1e30, which is finite."""
-    from repro_torch.core.packets import tree_flatten
-
-    return all(bool(torch.isfinite(t).all()) for c in cache
-               for t in tree_flatten({k: v for k, v in c.items()
-                                      if k != "pos"})[0])
+    if isinstance(cache, dict):
+        cache = list(cache.values())
+    if isinstance(cache, list):
+        return all(finite_state(c) for c in cache)
+    return not isinstance(cache, torch.Tensor) or bool(
+        torch.isfinite(cache).all())
 
 
 def phase12_serve(fa, arch: str):
@@ -2589,6 +2642,262 @@ def phase12(fa, attn) -> None:
     for arch in ("xlstm-125m", "recurrentgemma-9b"):
         phase11_card_vs_cpu(arch, label="phase 12 (d)")
     print(f"phase 12: {time.perf_counter() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: cross-attention, encoders and stub frontends
+# ---------------------------------------------------------------------------
+
+def open_gates(params: dict) -> int:
+    """Set every xattn layer's gate_attn and gate_mlp to M5_GATE;
+    returns the number of gates set."""
+    n = 0
+    for layer in params["decoder"]:
+        for key in ("gate_attn", "gate_mlp"):
+            if key in layer:
+                layer[key].fill_(M5_GATE)
+                n += 1
+    return n
+
+
+def m5_inputs(cfg, batch: int, prompt_len: int, mem_len: int, device,
+              seed_memory: int = SEED_M5_MEMORY):
+    """(prompt ids, memory embeddings (batch, mem_len, d) in cfg.dtype),
+    drawn from seeds on `device`."""
+    prompt = torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED_M5_PROMPT))
+    memory = torch.randn(
+        (batch, mem_len, cfg.d_model), device=device,
+        generator=torch.Generator(device=device).manual_seed(seed_memory)
+    ).to(cfg.dtype)
+    return prompt, memory
+
+
+def phase13_serve(fa, arch: str, card: str) -> dict:
+    """(a)/(b) M5_BATCH prompts with their memory through
+    `make_prefill_step` (cache prompt + M5_DECODE; a warm prefill, then
+    the timed one) and M5_DECODE greedy steps through `make_serve_step`
+    (the first one warm, the last one profiled): finite logits and
+    caches, flash launched once
+    per self-attention layer per forward and never for cross-attention,
+    the last step's cached logits == a fresh `forward_hidden` over the
+    prompt and the fed tokens with the same memory (the encoder re-run)
+    within DECODE_TOL_BF16, and the prefill's logits moved by other
+    memory embeddings; then profiles one more prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packets import tree_flatten
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+
+    label = "phase 13 (a)" if arch == M5_VISION else "phase 13 (b)"
+    cfg = get_config(arch)
+    if arch == M5_VISION:
+        cfg = cfg.with_overrides(num_layers=M5_VISION_LAYERS)
+    kinds = tf.layer_kinds(cfg)
+    prompt_len, mem_len = ((M5_VISION_PROMPT, cfg.num_frontend_tokens)
+                           if arch == M5_VISION
+                           else (M5_SEAMLESS_PROMPT, M5_SEAMLESS_FRAMES))
+    t0 = time.perf_counter()
+    params = tf.init_lm(torch.Generator(device="cuda").manual_seed(SEED_M5),
+                        cfg, device="cuda")
+    gates = open_gates(params)
+    prompt, memory = m5_inputs(cfg, M5_BATCH, prompt_len, mem_len, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    # the flash kernel runs every self-attention layer of one forward:
+    # the decoder's dense and dec layers and the encoder's layers
+    flash = sum(k in ("dense", "dec") for k in kinds) + cfg.encoder_layers
+    cache_len = prompt_len + M5_DECODE
+    prefill_step = make_prefill_step(cfg, cache_len=cache_len)
+    serve_step = make_serve_step(cfg)
+    batch = {"tokens": prompt, "memory": memory}
+
+    def counted(what, run):
+        return flash_counted(fa, f"{arch} {what}", flash, run, phase=label)
+
+    warm, cache = counted("warm prefill", lambda: prefill_step(params, batch))
+    del cache
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = counted("prefill", lambda: prefill_step(params, batch))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()),
+          f"{label}: {arch} non-finite prefill logits")
+    same = float((warm.float() - logits.float()).abs().max())
+    first = logits.float()
+    tokens, logps, kept = [greedy(logits, cfg)], [], []
+    del logits, warm
+    decode_step = tf.decode_step
+
+    def keeping(*args, **kw):       # the serve step's logits, kept
+        out = decode_step(*args, **kw)
+        kept[:] = [out[0]]
+        return out
+
+    tf.decode_step = keeping
+    try:
+        tok, lp, cache = serve_step(params, cache, tokens[-1])   # warm
+        tokens.append(tok)
+        logps.append(lp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(M5_DECODE - 2):
+            tok, lp, cache = serve_step(params, cache, tok)
+            tokens.append(tok)
+            logps.append(lp)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / (M5_DECODE - 2) * 1e3
+        traced = []                 # the last step, under the profiler
+        device_profile(f"{label} {arch} serve step", lambda: traced.append(
+            serve_step(params, cache, tok)))
+        tok, lp, cache = traced.pop()
+        tokens.append(tok)
+        logps.append(lp)
+    finally:
+        tf.decode_step = decode_step
+    peak = torch.cuda.max_memory_allocated()
+    logps = torch.cat(logps, dim=1)
+    check(bool(torch.isfinite(logps).all()) and finite_state(cache),
+          f"{label}: {arch} non-finite log-probs or decode cache")
+    selfs = [c.get("self", c) for c, k in zip(cache, kinds)
+             if k in ("dense", "dec")]
+    crosses = [c.get("cross", c) for c, k in zip(cache, kinds)
+               if k in ("xattn", "dec")]
+    check(len(selfs) == flash - cfg.encoder_layers and
+          all(c["pos"] == cache_len for c in selfs),
+          f"{label}: {arch} self-attention caches do not hold prompt + "
+          f"decoded tokens")
+    check(len(crosses) == sum(k in ("xattn", "dec") for k in kinds) > 0 and
+          all(c["k"].shape[1] == mem_len for c in crosses),
+          f"{label}: {arch} cross caches do not hold the memory's "
+          f"{mem_len} positions")
+    del cache
+    dec = kept.pop().float()
+    # the last step fed tokens[-2]: the fresh forward runs over the prompt
+    # and every token fed, prompt + M5_DECODE in all, with the same memory
+    seq = torch.cat([prompt] + [t.long() for t in tokens[:-1]], dim=1)
+    h, _ = counted("fresh forward_hidden", lambda: tf.forward_hidden(
+        params, seq, cfg, memory=tf._memory_states(params, batch, cfg)))
+    fresh = tf._lm_logits(params, h[:, -1:], cfg).float()
+    del h
+    tol16 = {"rtol": 0.0, "atol": DECODE_TOL_BF16}
+    scale = float(fresh.abs().max())
+    err, clear = held_to_fresh(dec, fresh, cfg, tol16, arch, phase=label)
+    del dec, fresh
+    # other memory embeddings: the prefill's logits must move by more
+    # than the same prefill's own repeat does (4x, and at least 1e-3)
+    _, other = m5_inputs(cfg, M5_BATCH, prompt_len, mem_len, "cuda",
+                         seed_memory=SEED_M5_MEMORY + 1)
+    moved_logits, cache = counted("prefill with other memory", lambda:
+                                  prefill_step(params, {"tokens": prompt,
+                                                        "memory": other}))
+    del cache, other
+    moved = float((moved_logits.float() - first).abs().max())
+    del moved_logits
+    check(moved > max(4 * same, 1e-3),
+          f"{label}: {arch} other memory moved the prefill logits by only "
+          f"{moved} (the same memory twice: {same})")
+    kinds = Counter(kinds)
+    tokens_s = M5_BATCH * prompt_len / prefill_s
+    print(f"{label}: {arch} {cfg.num_layers} decoder layers ("
+          f"{', '.join(f'{n} {k}' for k, n in kinds.items())}) + "
+          f"{cfg.encoder_layers} encoder layers, d={cfg.d_model} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.resolved_head_dim} "
+          f"d_ff {cfg.d_ff} vocab {cfg.vocab_size} bf16 ({n_params} "
+          f"parameters, drawn in {init_s:.3f} s; {gates} gates set to "
+          f"{M5_GATE}), B={M5_BATCH} prompt {prompt_len} ids, memory "
+          f"{mem_len} x {cfg.d_model} embeddings a request, cache "
+          f"{cache_len}: prefill {prefill_s:.6f} s (synchronized, after a "
+          f"warm one), {tokens_s:.1f} prompt tokens/s"
+          + (f", {M5_BATCH * mem_len / prefill_s:.1f} frames/s"
+             if cfg.encoder_layers else "")
+          + f"; {M5_DECODE} greedy serve steps, {M5_DECODE - 2} timed after "
+          f"a warm one (the last one traced): {decode_ms:.3f} ms/step, "
+          f"{M5_BATCH * 1e3 / decode_ms:.1f} tokens/s; max_memory_allocated "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB); flash launches a forward "
+          f"{flash} (never for cross-attention); mean log-prob "
+          f"{float(logps.mean()):.4f}; on {card}")
+    print(f"{label}: {arch} last decode step vs fresh forward_hidden over "
+          f"{seq.shape[1]} tokens with the same memory, logits up to "
+          f"{scale}: max |err| {err} (tolerance {tol16}), greedy tokens "
+          f"compared in {clear} of {M5_BATCH} requests (clear margin); "
+          f"other memory moved the prefill logits by {moved} (the same "
+          f"memory twice: {same})")
+    per_name = counted("traced prefill", lambda: device_profile(
+        f"{label} {arch} prefill", lambda: prefill_step(params, batch)))
+    flash_us = sum(us for name, us in per_name.items()
+                   if "flash_attention" in name)
+    print(f"{label}: {arch} flash in the traced prefill: {flash_us:.1f} us "
+          f"in {flash} launches, {flash_us / flash / 1e3:.6f} ms a launch "
+          f"(profiler)")
+    del params, batch, prompt, memory
+    return {"prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak,
+            "err": err, "flash_ms": flash_us / flash / 1e3}
+
+
+def phase13_card_vs_cpu() -> None:
+    """(c) the reduced Llama-3.2-Vision-90B and SeamlessM4T-medium in
+    float32 on the same weights (gates M5_GATE) and inputs: prefill with
+    memory and M5_F32_DECODE greedy steps on the card (the flash kernel)
+    and on the CPU (its plain version); every step's logits within
+    DECODE_TOL."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.packets import tree_map
+    from repro_torch.models import transformer as tf
+
+    for arch in (M5_VISION, M5_SEAMLESS):
+        cfg = reduced_config(arch).with_overrides(dtype=torch.float32)
+        params = tf.init_lm(torch.Generator().manual_seed(SEED_M5), cfg,
+                            device="cpu")
+        open_gates(params)
+        prompt, memory = m5_inputs(cfg, M5_BATCH, 2 * cfg.num_frontend_tokens,
+                                   cfg.num_frontend_tokens, "cpu")
+        outs, fed = {}, []
+        for dev in ("cpu", "cuda"):     # both fed the CPU's greedy tokens
+            p = tree_map(lambda t, dev=dev: t.to(dev), params)
+            logits, cache = tf.prefill(
+                p, prompt.to(dev), cfg, memory=memory.to(dev),
+                cache_len=prompt.shape[1] + M5_F32_DECODE)
+            steps = [logits.cpu()]
+            for i in range(M5_F32_DECODE):
+                if dev == "cpu":
+                    fed.append(greedy(steps[-1], cfg))
+                logits, cache = tf.decode_step(p, fed[i].to(dev), cache, cfg)
+                steps.append(logits.cpu())
+            outs[dev] = steps
+            del p, cache
+        errs = []
+        for i, (a, b_) in enumerate(zip(outs["cuda"], outs["cpu"],
+                                        strict=True)):
+            errs.append(float((a - b_).abs().max()))
+            check(torch.allclose(a, b_, **DECODE_TOL),
+                  f"phase 13 (c): reduced {arch} float32 step {i} logits on "
+                  f"the card differ from the CPU's (max |err| {errs[-1]}, "
+                  f"tolerance {DECODE_TOL})")
+        print(f"phase 13 (c): reduced {arch} float32 (gates {M5_GATE}), "
+              f"B={M5_BATCH} prompt {prompt.shape[1]} memory "
+              f"{memory.shape[1]}: prefill + {M5_F32_DECODE} decode steps on "
+              f"the card == the CPU's within {DECODE_TOL}, max |err| per "
+              f"step {errs}")
+
+
+def phase13(fa) -> dict:
+    """Phase 13 (a)-(c), one model on the card at a time."""
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {}
+    for arch in (M5_VISION, M5_SEAMLESS):
+        out[arch] = phase13_serve(fa, arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase13_card_vs_cpu()
+    print(f"phase 13: {time.perf_counter() - t0:.3f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2954,11 +3263,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     runs.append(main_path("phase 12", wrappers, ("flash_attention",),
                           lambda: phase12(fa, attn)))
+    torch.cuda.empty_cache()
+    counts13, _ = main_path("phase 13", wrappers, ("flash_attention",),
+                            lambda: phase13(fa))
+    runs.append((counts13, None))
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-12)")
+          + " (phases 2-13)")
     times["flash_attention"] = time_flash(fa, ref)
 
     gm_py = "src/repro/kernels/gf_matmul.py"

@@ -23,13 +23,12 @@ ARCHITECTURES = (
     "qwen3_8b",
 )
 PORTED = ("qwen3_4b", "qwen3_8b", "qwen2_72b", "xlstm_125m",
-          "recurrentgemma_9b", "starcoder2_15b")
+          "recurrentgemma_9b", "starcoder2_15b", "llama3_2_vision_90b",
+          "seamless_m4t_medium")
 # where each unported architecture waits in ROADMAP.md §1
 _MILESTONE = {
     "arctic_480b": "M4 (MoE and MLA)",
     "deepseek_v2_236b": "M4 (MoE and MLA)",
-    "llama3_2_vision_90b": "M5 (cross-attention, encoders, frontends)",
-    "seamless_m4t_medium": "M5 (cross-attention, encoders, frontends)",
 }
 
 # CLI ids (dashes) -> module names

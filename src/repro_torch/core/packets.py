@@ -89,7 +89,9 @@ def params_from_jax(tree, device="cuda", *, bf16_bits: bool = False) -> Any:
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16" or (bf16_bits and
                                       a.dtype in (np.uint16, np.int16)):
-        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        # np.array copies into a contiguous array of a's shape (0-d stays
+        # 0-d; np.ascontiguousarray would make it (1,))
+        bits = torch.from_numpy(np.array(a).view(np.int16))
         return bits.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 

@@ -189,10 +189,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
 def make_prefill_step(cfg: ModelConfig, *, cache_len: int,
                       window: Optional[int] = None) -> Callable:
     """(params, batch) -> (last logits (B, 1, V), cache); batch holds
-    "tokens" (B, S)."""
+    "tokens" (B, S) and, for a config with a frontend, "memory" (B, M, d)
+    (`tf.prefill`)."""
     def prefill_step(params, batch):
         return tf.prefill(params, batch["tokens"], cfg, cache_len=cache_len,
-                          window=window)
+                          window=window, memory=batch.get("memory"))
     return prefill_step
 
 

@@ -5,7 +5,9 @@ config on one device.  The global batch splits into K client shards,
 each computes its gradient, FedNC codes the K gradients across the
 client axis, and the decoded mean updates the global model (AdamW,
 linear warm-up over 10 steps then cosine).  Tokens come from the
-planted-bigram stream of `data.tokens` (seed 0).
+planted-bigram stream of `data.tokens` (seed 0); a config with a
+frontend (Llama-3.2-Vision, SeamlessM4T) is fed zero memory embeddings
+(batch, `num_frontend_tokens`, d_model), as the reference feeds it.
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 50 --batch 8 --seq 128 --agg fednc_blocked
@@ -64,6 +66,10 @@ def train(cfg, params, *, steps: int, batch: int, seq: int,
     for i in range(steps):
         b = stream.batch(batch, seq)
         tb = {k: torch.from_numpy(v).long().to(device) for k, v in b.items()}
+        if cfg.frontend:
+            tb["memory"] = torch.zeros(
+                (batch, cfg.num_frontend_tokens, cfg.d_model),
+                dtype=cfg.dtype, device=device)
         ts = obs.clock()
         run.params, run.opt_state, loss = step_fn(run.params, run.opt_state,
                                                   tb, gen)

@@ -1,7 +1,8 @@
 """Self-attention (GQA, RoPE, QK-norm, bias, sliding window) with the
-train / prefill / decode KV-cache paths.
+train / prefill / decode KV-cache paths, and cross-attention.
 
-The port of the GQA part of `repro.models.attention`.  Train and
+The port of the GQA and cross-attention parts of
+`repro.models.attention`.  Train and
 prefill (causal, query i against keys j <= i, and with a window also
 j > i - window) take one of three routes, chosen per call
 (`_causal_attention`):
@@ -23,8 +24,13 @@ j > i - window) take one of three routes, chosen per call
   such as RecurrentGemma's 256).
 
 Decode is `_attend` of one query against the ring-buffer cache, as the
-reference computes it outside any kernel.  MLA and cross-attention are
-not ported yet.
+reference computes it outside any kernel.  MLA is not ported yet.
+
+Cross-attention (VLM image layers, the enc-dec decoder) projects the
+memory (frontend embeddings or encoder states) to K and V once
+(`precompute_cross_kv`), and every query attends every memory position:
+`_attend` with ``causal=False``, no window and no RoPE, in float32 as
+the reference computes it (never the causal flash kernel).
 
 The KV cache is a dict {"k", "v": (B, slots, KV, hd), "pos": int}.
 Unlike the reference's functional update, prefill and decode write
@@ -232,3 +238,49 @@ def _append_cache(cache: dict, k, v) -> dict:
     cache["k"][:, idx:idx + 1].copy_(k)
     cache["v"][:, idx:idx + 1].copy_(v)
     return {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (VLM image layers, enc-dec decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(g: torch.Generator, cfg: ModelConfig,
+                         device="cuda") -> dict:
+    """K and V from frontend / encoder memory; the self-attention head
+    layout, no bias."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    kw = {"dtype": cfg.dtype, "device": device}
+    return {
+        "wq": dense_init(g, d, H * hd, **kw),
+        "wk": dense_init(g, d, KV * hd, **kw),
+        "wv": dense_init(g, d, KV * hd, **kw),
+        "wo": dense_init(g, H * hd, d, **kw),
+    }
+
+
+def precompute_cross_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig
+                        ) -> dict:
+    """Project memory (B, M, d) to {"k", "v": (B, M, KV, hd)} once (the
+    decode steps reuse them)."""
+    B, M, _ = memory.shape
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": dense_apply(p["wk"], memory).reshape(B, M, KV, hd),
+            "v": dense_apply(p["wv"], memory).reshape(B, M, KV, hd)}
+
+
+def apply_cross_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                          memory: Optional[torch.Tensor] = None,
+                          mem_kv: Optional[dict] = None) -> torch.Tensor:
+    """x (B, S, d) attends every position of the memory: `mem_kv`
+    (`precompute_cross_kv`), or `memory` projected here."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    groups = H // KV
+    if mem_kv is None:
+        mem_kv = precompute_cross_kv(p, memory, cfg)
+    q = dense_apply(p["wq"], x).reshape(B, S, H, hd)
+    kf = _expand_kv(mem_kv["k"], groups)
+    vf = _expand_kv(mem_kv["v"], groups)
+    out = _attend(q, kf, vf, causal=False, window=None, q_offset=0)
+    return dense_apply(p["wo"], out.reshape(B, S, H * hd))

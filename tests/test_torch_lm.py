@@ -281,13 +281,15 @@ def _lm_leaves(params: dict) -> list:
 
 def test_configs_match_reference_and_unported_ones_raise(J):
     """Every ported config (Qwen3-4B, Qwen3-8B, Qwen2-72B, xLSTM-125M,
-    RecurrentGemma-9B, StarCoder2-15B), full and reduced, equals the
-    reference's field for field; an unported one raises and names its
-    milestone in ROADMAP.md."""
+    RecurrentGemma-9B, StarCoder2-15B, Llama-3.2-Vision-90B,
+    SeamlessM4T-medium), full and reduced, equals the reference's field
+    for field; an unported one raises and names its milestone in
+    ROADMAP.md."""
     import dataclasses
     assert tconfigs.PORTED == ("qwen3_4b", "qwen3_8b", "qwen2_72b",
                                "xlstm_125m", "recurrentgemma_9b",
-                               "starcoder2_15b")
+                               "starcoder2_15b", "llama3_2_vision_90b",
+                               "seamless_m4t_medium")
     for arch in tconfigs.PORTED:
         for getter in ("get_config", "reduced_config"):
             jc = getattr(J.configs, getter)(arch)
