@@ -186,6 +186,32 @@ failing on the first wrong result:
    (c) the reduced configs in float32 on the same weights, prefill and 4
    decode steps on the card and on the CPU: logits within rtol = atol =
    1e-3.
+14. MoE and MLA (after phase 13), one model on the card at a time,
+   bf16 weights at the reference's scales from a seed (routers float32):
+   (a) Arctic-480B at full width (d 7,168, 56/8 heads, hd 128, 128
+   experts top-2 with d_ff 4,864 and a dense residual of 4,864, vocab
+   32,000) on 2 of its 35 layers; (b) DeepSeek-V2-236B at full width
+   (d 5,120, 128 heads of MLA: latent rank 512, q rank 1,536, nope 128,
+   rope 64, v 128; 160 experts top-6 with d_ff 1,536 and 2 shared, the
+   dense layer 0 with d_ff 12,288, vocab 102,400) on 6 of its 60 layers.
+   Each: 4 prompts of 2,048 ids through `make_prefill_step` (cache
+   2,080; a warm prefill, then the timed one) and 32 greedy steps
+   through `make_serve_step`: finite logits and caches, flash launched
+   once per Arctic layer per forward and never for DeepSeek-V2; then, on
+   the same weights with capacity_factor = E / top_k (C = T: no pair is
+   dropped), 4 prompts of 256 ids and 8 decode steps whose last logits
+   must equal a fresh `forward_hidden` within 0.25; at the published
+   factor the same difference is printed and not held (R9: the
+   reference routes each decode step as its own group, so a cached step
+   drops other pairs than a fresh forward).  It prints the prefill
+   wall, prompt tokens/s, decode ms per step and `max_memory_allocated`
+   beside the card's name and power limit, profiles the last serve step
+   and one more prefill (flash's time a launch); (c) the reduced
+   Arctic-480B and DeepSeek-V2-236B (MLA non-absorbed and absorbed) in
+   float32 on the same weights, on the card and on the CPU: prefill and
+   4 decode steps within rtol = atol = 1e-3, `lm_loss`'s aux within
+   1e-6 and every gradient leaf, the routers' included, within rtol 1e-4
+   plus 1e-5 of the leaf's scale.
 
 Phase 1 also holds the packed kernel's batched instance against its
 plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
@@ -194,7 +220,8 @@ and the flash-attention kernel against its plain version
 in float32 and bf16: head_dim 32, 64, 128, GQA groups 1 and 4, S = 1,
 ragged S (100, 2049), the bf16 kernel's 128-key tile edges (129, 256,
 300), non-causal, strided views, views TMA cannot read in place (each
-still one launch) and the prefill shapes of phases 7, 11 and 13.  After the build it prints
+still one launch) and the prefill shapes of phases 7, 11, 13 and 14
+(Arctic's GQA ratio of 7).  After the build it prints
 ptxas' registers and spills of every kernel instance, the SASS census
 of the GF kernels' s = 8 instances and of the XOR kernel's 8-row
 instance, whole and of their hottest basic block, the step of a full
@@ -202,7 +229,7 @@ tile (LOP3, of them the selects, SHF, IADD3, IMAD, ISETP, and shared
 and global loads by width; the selects per word and packet row) and the
 count of tensor-core instructions (HGMMA, HMMA) in the flash library.
 
-Each of phases 2-13 (each run of phase 9; phase 11's training run)
+Each of phases 2-14 (each run of phase 9; phase 11's training run)
 drives the main path with every
 launch count set to 0 just before it and read just after, and fails if a kernel of that
 path was not launched.  Then it traces one round per 500M configuration,
@@ -216,7 +243,7 @@ kernel, its plain version and PyTorch's
 `scaled_dot_product_attention` (timing only) at phase 7's shape with
 CUDA events, and prints, before its last line, the card's name and
 power limit and one JSON object with every kernel's launches (phases
-2-13), error, time, plain time and bound.  The last line is
+2-14), error, time, plain time and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's `src/` beside it, it fails before printing a result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -397,6 +424,32 @@ M5_F32_DECODE = 4                # (c): decode steps of the card-vs-CPU run
 SEED_M5 = 24                     # weights, drawn on the card
 SEED_M5_PROMPT = 25              # prompt token ids
 SEED_M5_MEMORY = 26              # memory embeddings; SEED_M5_MEMORY + 1 the others
+# phase 14: MoE and MLA, one model on the card at a time, bf16 weights at
+# the reference's scales from a seed.  Arctic-480B at full width on 2 of
+# its 35 layers (27.68B parameters, 55.4 GB; 3 layers would be 82.6 GB),
+# DeepSeek-V2-236B at full width on 6 of its 60 (the dense prefix layer
+# and 5 moe: 21.25B parameters, 42.5 GB)
+M4_ARCTIC, M4_DEEPSEEK = "arctic-480b", "deepseek-v2-236b"
+M4_LAYERS = {M4_ARCTIC: 2, M4_DEEPSEEK: 6}
+M4_BATCH = 4
+M4_PROMPT = 2048
+M4_DECODE = 32                   # greedy steps; the cache holds prompt + these
+# cached vs fresh (R9): the reference routes each decode step's B tokens
+# as one group with its own capacity, so at the published capacity factor
+# a cached step drops other (token, choice) pairs than a fresh forward
+# and the two differ by more than rounding (ROADMAP.md §3 R9).  They are
+# held within DECODE_TOL_BF16 on the same weights at capacity_factor =
+# E / top_k (C = T: nothing is dropped); at the published factor the
+# difference is printed, not held
+M4_R9_PROMPT = 256
+M4_R9_DECODE = 8
+# with MLA the C = T check also runs in float32 on the first layers (the
+# dense one and a moe: 5.4B parameters, 21.4 GB beside the bf16 model)
+M4_F32_LAYERS = 2
+M4_F32_DECODE = 4                # (c): decode steps of the card-vs-CPU run
+M4_AUX_TOL = 1e-6                # (c): |aux on the card - aux on the CPU|
+SEED_M4 = 27                     # weights, drawn on the card
+SEED_M4_PROMPT = 28              # prompt token ids
 # (d): counts and rates must equal the fixture exactly.  The simulated
 # clock's fields (time_*) are sums of ~300 gaps scaled by slowness
 # factors normalized by a mean over 10^6 clients, and numpy builds differ
@@ -705,7 +758,9 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
                            # dense layers, SeamlessM4T-medium's encoder
                            (M5_BATCH, M5_VISION_PROMPT, 64, 8, 128, True, 0),
                            (M5_BATCH, M5_SEAMLESS_FRAMES, 16, 16, 64, True,
-                            0)]
+                            0),
+                           # phase 14's: Arctic-480B's GQA ratio of 7
+                           (M4_BATCH, M4_PROMPT, 56, 8, 128, True, 0)]
                           if dtype == torch.bfloat16 else [])
         worst[dtype] = used[dtype] = 0.0
         for B, S, H, KV, hd, causal, pad in shapes:
@@ -742,8 +797,8 @@ def phase1_flash(fa, ref, attn) -> dict[str, float]:
                 check(torch.allclose(got, plain, **tol),
                       f"flash_attention {what} differs from _attend")
     print(f"phase 1: flash_attention == plain version, {len(cases)} shapes "
-          f"in each dtype + the phase-7, phase-11 and phase-13 shapes in "
-          f"bf16 (hd "
+          f"in each dtype + the phase-7, phase-11, phase-13 and phase-14 "
+          f"shapes in bf16 (hd "
           f"32/64/128, groups "
           f"1 and 4, S 1/100/129/256/300/2049, non-causal S=256, strided "
           f"views, views TMA cannot read in place): "
@@ -2901,6 +2956,370 @@ def phase13(fa) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: MoE and MLA
+# ---------------------------------------------------------------------------
+
+def m4_flash(cfg) -> int:
+    """Flash launches of one forward: one per self-attention layer that
+    takes the kernel (GQA at a head dim it has); MLA never does."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.models import transformer as tf
+
+    if cfg.mla is not None or cfg.resolved_head_dim not in HEAD_DIMS:
+        return 0
+    return len(tf.layer_kinds(cfg))
+
+
+def no_drop(cfg):
+    """`cfg` with capacity_factor = E / top_k: every expert has C = T
+    slots in every group, so no (token, choice) pair is dropped."""
+    import dataclasses
+
+    mc = cfg.moe
+    return cfg.with_overrides(moe=dataclasses.replace(
+        mc, capacity_factor=mc.num_experts / mc.top_k))
+
+
+def routed(run):
+    """`run()` with the MoE routing recorded: (its result, the top-k
+    experts of every routed group, in call order)."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe._route
+
+    def spy(p, xt, cfg):
+        out = route(p, xt, cfg)
+        seen.append(out[2])
+        return out
+
+    moe._route = spy
+    try:
+        return run(), seen
+    finally:
+        moe._route = route
+
+
+def m4_cached_vs_fresh(fa, cfg, params, prompt, label: str):
+    """Prefill `prompt`, M4_R9_DECODE greedy decode steps, and a fresh
+    `forward_hidden` over the prompt and the fed tokens: (the last step's
+    cached logits, the fresh ones, both float32; (B,) bool: requests
+    whose last token took another set of experts in some MoE layer in
+    the last step than in the fresh forward)."""
+    from repro_torch.models import transformer as tf
+
+    flash = m4_flash(cfg)
+    logits, cache = flash_counted(fa, f"{label} prefill", flash, lambda:
+                                  tf.prefill(params, prompt, cfg, cache_len=(
+                                      prompt.shape[1] + M4_R9_DECODE)),
+                                  phase="phase 14")
+    fed = []
+    for _ in range(M4_R9_DECODE):
+        fed.append(greedy(logits, cfg))
+        (logits, cache), dec_route = routed(
+            lambda: tf.decode_step(params, fed[-1], cache, cfg))
+    del cache
+    seq = torch.cat([prompt] + fed, dim=1)
+    B, S = seq.shape
+    (h, _), fresh_route = routed(lambda: flash_counted(
+        fa, f"{label} fresh forward_hidden", flash,
+        lambda: tf.forward_hidden(params, seq, cfg), phase="phase 14"))
+    fresh = tf._lm_logits(params, h[:, -1:], cfg).float()
+    del h
+    dec = logits.float()
+    check(bool(torch.isfinite(dec).all()) and
+          bool(torch.isfinite(fresh).all()),
+          f"phase 14: {label} non-finite logits")
+    # one group a layer in both (B·S <= TARGET_GROUP), batch-major
+    check(len(dec_route) == len(fresh_route) ==
+          sum(k.startswith("moe") for k in tf.layer_kinds(cfg)),
+          f"phase 14: {label} not one routing group per MoE layer")
+    flipped = torch.zeros(B, dtype=torch.bool, device=dec.device)
+    for d_idx, f_idx in zip(dec_route, fresh_route, strict=True):
+        last = f_idx.reshape(B, S, -1)[:, -1]
+        flipped |= (d_idx.sort(-1).values != last.sort(-1).values).any(-1)
+    return dec, fresh, flipped
+
+
+def phase14_serve(fa, arch: str, card: str) -> dict:
+    """(a)/(b) M4_BATCH prompts of M4_PROMPT ids through
+    `make_prefill_step` (cache prompt + M4_DECODE; a warm prefill, then
+    the timed one) and M4_DECODE greedy steps through `make_serve_step`
+    (the first one warm, the last one profiled): finite logits and
+    caches, flash launched once per layer per forward for Arctic and
+    never for DeepSeek-V2 (MLA); cached vs fresh at capacity_factor =
+    E / top_k within DECODE_TOL_BF16 (R9: at the published factor
+    printed, not held); then profiles one more prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packets import tree_flatten, tree_map
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+
+    label = "phase 14 (a)" if arch == M4_ARCTIC else "phase 14 (b)"
+    cfg = get_config(arch).with_overrides(num_layers=M4_LAYERS[arch])
+    kinds = tf.layer_kinds(cfg)
+    t0 = time.perf_counter()
+    params = tf.init_lm(torch.Generator(device="cuda").manual_seed(SEED_M4),
+                        cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED_M4_PROMPT)
+    prompt = torch.randint(0, cfg.vocab_size, (M4_BATCH, M4_PROMPT),
+                           device="cuda", generator=gen)
+    r9_prompt = torch.randint(0, cfg.vocab_size, (M4_BATCH, M4_R9_PROMPT),
+                              device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_flatten(params)[0]
+    n_params = sum(t.numel() for t in leaves)
+    routers = [layer["moe"]["router"]["w"] for layer in params["decoder"]
+               if "moe" in layer]
+    check(len(routers) == sum(k.startswith("moe") for k in kinds) and
+          all(w.dtype == torch.float32 for w in routers),
+          f"{label}: {arch} routers are not float32")
+    flash = m4_flash(cfg)
+    cache_len = M4_PROMPT + M4_DECODE
+    prefill_step = make_prefill_step(cfg, cache_len=cache_len)
+    serve_step = make_serve_step(cfg)
+    batch = {"tokens": prompt}
+
+    def counted(what, run):
+        return flash_counted(fa, f"{arch} {what}", flash, run, phase=label)
+
+    _, cache = counted("warm prefill", lambda: prefill_step(params, batch))
+    del cache
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = counted("prefill", lambda: prefill_step(params, batch))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()),
+          f"{label}: {arch} non-finite prefill logits")
+    tok = greedy(logits, cfg)
+    del logits
+    logps = []
+    tok, lp, cache = serve_step(params, cache, tok)             # warm
+    logps.append(lp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(M4_DECODE - 2):
+        tok, lp, cache = serve_step(params, cache, tok)
+        logps.append(lp)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / (M4_DECODE - 2) * 1e3
+    traced = []                     # the last step, under the profiler
+    device_profile(f"{label} {arch} serve step", lambda: traced.append(
+        serve_step(params, cache, tok)))
+    tok, lp, cache = traced.pop()
+    logps.append(lp)
+    peak = torch.cuda.max_memory_allocated()
+    logps = torch.cat(logps, dim=1)
+    check(bool(torch.isfinite(logps).all()) and finite_state(cache),
+          f"{label}: {arch} non-finite log-probs or decode cache")
+    check(len(cache) == cfg.num_layers and
+          all(c["pos"] == cache_len for c in cache),
+          f"{label}: {arch} caches do not hold prompt + decoded tokens")
+    if cfg.mla is not None:
+        check(all(sorted(c) == ["ckv", "krope", "pos"] and
+                  c["ckv"].shape == (M4_BATCH, cache_len,
+                                     cfg.mla.kv_lora_rank) for c in cache),
+              f"{label}: {arch} MLA caches are not the latent cache")
+    del cache
+
+    tokens_s = M4_BATCH * M4_PROMPT / prefill_s
+    mc = cfg.moe
+    print(f"{label}: {arch} {cfg.num_layers} of "
+          f"{get_config(arch).num_layers} layers ("
+          f"{', '.join(f'{n} {k}' for k, n in Counter(kinds).items())}), "
+          f"d={cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+          + (f"MLA r {cfg.mla.kv_lora_rank} q {cfg.mla.q_lora_rank} nope "
+             f"{cfg.mla.nope_head_dim} rope {cfg.mla.rope_head_dim} v "
+             f"{cfg.mla.v_head_dim}" if cfg.mla is not None
+             else f"hd={cfg.resolved_head_dim}")
+          + f", {mc.num_experts} experts top-{mc.top_k} d_ff "
+          f"{mc.d_ff_expert} (shared {mc.num_shared_experts}, dense "
+          f"residual {mc.dense_residual}), vocab {cfg.vocab_size} bf16 "
+          f"({n_params} parameters, drawn in {init_s:.3f} s; routers "
+          f"float32), B={M4_BATCH} prompt {M4_PROMPT} ids, cache "
+          f"{cache_len}: prefill {prefill_s:.6f} s (synchronized, after a "
+          f"warm one), {tokens_s:.1f} prompt tokens/s; {M4_DECODE} greedy "
+          f"serve steps, {M4_DECODE - 2} timed after a warm one (the last "
+          f"one traced): {decode_ms:.3f} ms/step, "
+          f"{M4_BATCH * 1e3 / decode_ms:.1f} tokens/s; max_memory_allocated "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB); flash launches a forward "
+          f"{flash}; mean log-prob {float(logps.mean()):.4f}; on {card}",
+          flush=True)
+
+    # cached vs fresh where nothing can drop (held), and at the published
+    # capacity factor (R9: printed, not held).  In bf16 the last token's
+    # router input differs by rounding between a one-token decode step and
+    # a forward over the grown sequence, and a near tie between the k-th
+    # and (k+1)-th expert can then go either way: a request whose last
+    # token took another set of experts in any layer changes by a whole
+    # expert's output (R9), so the bf16 hold covers the others, and with
+    # MLA the same check runs in float32 on the model's first
+    # M4_F32_LAYERS layers, every request held
+    tol16 = {"rtol": 0.0, "atol": DECODE_TOL_BF16}
+    dec, fresh, flipped = m4_cached_vs_fresh(fa, no_drop(cfg), params,
+                                             r9_prompt, f"{arch} C = T")
+    scale = float(fresh.abs().max())
+    err_all = float((dec - fresh).abs().max())
+    check(not bool(flipped.all()),
+          f"{label}: {arch} C = T: every request's routing differs between "
+          f"the cached step and the fresh forward; nothing left to hold")
+    err, clear = held_to_fresh(dec[~flipped], fresh[~flipped], cfg, tol16,
+                               f"{arch} C = T", phase=label)
+    held = (f"at capacity_factor = E / top_k = "
+            f"{mc.num_experts / mc.top_k} (C = T) {int(flipped.sum())} of "
+            f"{M4_BATCH} requests took another expert set in some layer "
+            f"(max |err| over all {err_all}); the others max |err| {err} on "
+            f"logits up to {scale} (tolerance {tol16}), greedy tokens "
+            f"compared in {clear} (clear margin)")
+    del dec, fresh
+    if cfg.mla is not None:
+        cfg32 = no_drop(cfg).with_overrides(num_layers=M4_F32_LAYERS,
+                                            dtype=torch.float32)
+        params32 = {k: (v[:M4_F32_LAYERS] if k == "decoder" else v)
+                    for k, v in params.items()}
+        params32 = tree_map(lambda t: t.float(), params32)
+        dec, fresh, flip32 = m4_cached_vs_fresh(
+            fa, cfg32, params32, r9_prompt, f"{arch} C = T float32")
+        del params32
+        err32, clear32 = held_to_fresh(dec, fresh, cfg, DECODE_TOL,
+                                       f"{arch} C = T float32", phase=label)
+        held += (f"; float32 on the first {M4_F32_LAYERS} layers (same "
+                 f"weights): max |err| {err32} (tolerance {DECODE_TOL}), "
+                 f"{int(flip32.sum())} requests with another expert set, "
+                 f"greedy tokens compared in {clear32}")
+        del dec, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec, fresh, flipped = m4_cached_vs_fresh(fa, cfg, params, r9_prompt,
+                                             f"{arch} published factor")
+    r9 = float((dec - fresh).abs().max())
+    del dec, fresh
+    print(f"{label}: {arch} last of {M4_R9_DECODE} decode steps after "
+          f"{M4_BATCH} x {M4_R9_PROMPT} ids vs fresh forward_hidden: {held}; "
+          f"R9: not gated: at the published {mc.capacity_factor} max |err| "
+          f"{r9} ({int(flipped.sum())} requests with another expert set)",
+          flush=True)
+    per_name = counted("traced prefill", lambda: device_profile(
+        f"{label} {arch} prefill", lambda: prefill_step(params, batch)))
+    flash_us = sum(us for name, us in per_name.items()
+                   if "flash_attention" in name)
+    if flash:
+        print(f"{label}: {arch} flash in the traced prefill: {flash_us:.1f} "
+              f"us in {flash} launches, {flash_us / flash / 1e3:.6f} ms a "
+              f"launch (profiler)")
+    del params, batch, prompt, leaves, routers
+    return {"prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak,
+            "err": err, "r9": r9,
+            "flash_ms": flash_us / flash / 1e3 if flash else None}
+
+
+def phase14_card_vs_cpu() -> None:
+    """(c) the reduced Arctic-480B and DeepSeek-V2-236B (absorbed False
+    and True) in float32 on the same weights and inputs, on the card
+    (the flash kernel where the reduced Arctic's attention takes it) and
+    on the CPU (its plain version): prefill and M4_F32_DECODE greedy
+    steps, logits within DECODE_TOL; `lm_loss` (remat) aux within
+    M4_AUX_TOL, xent within DECODE_TOL and every gradient leaf, the
+    routers' included, within GRAD_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.packets import (tree_flatten, tree_map,
+                                          tree_unflatten)
+    from repro_torch.data.tokens import make_token_stream
+    from repro_torch.models import transformer as tf
+
+    cases = [(M4_ARCTIC, None), (M4_DEEPSEEK, False), (M4_DEEPSEEK, True)]
+    for arch, absorbed in cases:
+        cfg = reduced_config(arch).with_overrides(dtype=torch.float32)
+        if absorbed is not None:
+            cfg = cfg.with_overrides(mla=dataclasses.replace(
+                cfg.mla, absorbed=absorbed))
+        what = arch + ("" if absorbed is None else f" absorbed={absorbed}")
+        params = tf.init_lm(torch.Generator().manual_seed(SEED_M4), cfg,
+                            device="cpu")
+        prompt = torch.randint(0, cfg.vocab_size, (M4_BATCH, 64),
+                               generator=torch.Generator().manual_seed(
+                                   SEED_M4_PROMPT))
+        b = make_token_stream(cfg.vocab_size, seed=0).batch(REDUCED_BATCH,
+                                                            REDUCED_SEQ)
+        outs, fed = {}, []
+        for dev in ("cpu", "cuda"):     # both fed the CPU's greedy tokens
+            p = tree_map(lambda t, dev=dev: t.to(dev), params)
+            logits, cache = tf.prefill(p, prompt.to(dev), cfg,
+                                       cache_len=64 + M4_F32_DECODE)
+            steps = [logits.cpu()]
+            for i in range(M4_F32_DECODE):
+                if dev == "cpu":
+                    fed.append(greedy(steps[-1], cfg))
+                logits, cache = tf.decode_step(p, fed[i].to(dev), cache, cfg)
+                steps.append(logits.cpu())
+            del cache
+            leaves, treedef = tree_flatten(p)
+            live = [t.detach().requires_grad_() for t in leaves]
+            batch = {k: torch.from_numpy(v).long().to(dev)
+                     for k, v in b.items()}
+            loss, parts = tf.lm_loss(tree_unflatten(treedef, live), batch,
+                                     cfg)
+            grads = torch.autograd.grad(loss, live)
+            outs[dev] = (steps, float(parts["xent"].detach()),
+                         float(parts["aux"].detach()),
+                         [g.cpu() for g in grads])
+            del p, live, grads
+        errs = [float((a - b_).abs().max()) for a, b_ in
+                zip(outs["cuda"][0], outs["cpu"][0], strict=True)]
+        for i, (a, b_) in enumerate(zip(outs["cuda"][0], outs["cpu"][0],
+                                        strict=True)):
+            check(torch.allclose(a, b_, **DECODE_TOL),
+                  f"phase 14 (c): reduced {what} float32 step {i} logits on "
+                  f"the card differ from the CPU's (max |err| {errs[i]}, "
+                  f"tolerance {DECODE_TOL})")
+        (_, xent_c, aux_c, g_c), (_, xent_h, aux_h, g_h) = (outs["cuda"],
+                                                           outs["cpu"])
+        check(aux_h > 0 and abs(aux_c - aux_h) <= M4_AUX_TOL,
+              f"phase 14 (c): reduced {what} aux {aux_c} on the card, "
+              f"{aux_h} on the CPU (tolerance {M4_AUX_TOL})")
+        check(abs(xent_c - xent_h) <= DECODE_TOL["atol"] + DECODE_TOL[
+            "rtol"] * abs(xent_h), f"phase 14 (c): reduced {what} xent "
+              f"{xent_c} on the card, {xent_h} on the CPU")
+        worst = 0.0
+        for j, (a, b_) in enumerate(zip(g_c, g_h, strict=True)):
+            bound = (GRAD_TOL["rtol"] * b_.abs()
+                     + GRAD_TOL["scale"] * b_.abs().max())
+            diff = (a - b_).abs()
+            check(bool((diff <= bound).all()),
+                  f"phase 14 (c): reduced {what} gradient leaf {j} differs "
+                  f"from the CPU's (max |err| {float(diff.max())}, "
+                  f"{GRAD_TOL})")
+            worst = max(worst, float(diff.max() / b_.abs().max().clamp(
+                min=1e-30)))
+        print(f"phase 14 (c): reduced {what} float32, B={M4_BATCH} prompt "
+              f"64: prefill + {M4_F32_DECODE} decode steps on the card == "
+              f"the CPU's within {DECODE_TOL}, max |err| per step {errs}; "
+              f"lm_loss over {REDUCED_BATCH} x {REDUCED_SEQ} tokens: xent "
+              f"{xent_c} / {xent_h}, aux {aux_c} / {aux_h} (|err| "
+              f"{abs(aux_c - aux_h)}, tolerance {M4_AUX_TOL}), every "
+              f"gradient leaf (routers included) within {GRAD_TOL} "
+              f"(largest |err| / leaf scale {worst:.3e})")
+
+
+def phase14(fa) -> dict:
+    """Phase 14 (a)-(c), one model on the card at a time."""
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {}
+    for arch in (M4_ARCTIC, M4_DEEPSEEK):
+        out[arch] = phase14_serve(fa, arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase14_card_vs_cpu()
+    print(f"phase 14: {time.perf_counter() - t0:.3f} s")
+    return out
+
+# ---------------------------------------------------------------------------
 # where a round's time goes: one traced round per 500M configuration
 # ---------------------------------------------------------------------------
 
@@ -3267,11 +3686,15 @@ def main() -> None:
     counts13, _ = main_path("phase 13", wrappers, ("flash_attention",),
                             lambda: phase13(fa))
     runs.append((counts13, None))
+    torch.cuda.empty_cache()
+    counts14, _ = main_path("phase 14", wrappers, ("flash_attention",),
+                            lambda: phase14(fa))
+    runs.append((counts14, None))
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"
                                   for k, v in counts.items())
-          + " (phases 2-13)")
+          + " (phases 2-14)")
     times["flash_attention"] = time_flash(fa, ref)
 
     gm_py = "src/repro/kernels/gf_matmul.py"

@@ -2,9 +2,8 @@
 
 The port of `repro.configs`: the same names and aliases.  Each ported
 module exports get_config() (the full assigned spec) and
-reduced_config() (the CPU smoke-test variant).  Only the architectures
-in `PORTED` have a module here; asking for another raises and points at
-ROADMAP.md, where the rest of the LM side waits.
+reduced_config() (the CPU smoke-test variant).  All ten architectures
+are ported (`PORTED`); an unknown name raises ValueError.
 """
 from __future__ import annotations
 
@@ -24,12 +23,7 @@ ARCHITECTURES = (
 )
 PORTED = ("qwen3_4b", "qwen3_8b", "qwen2_72b", "xlstm_125m",
           "recurrentgemma_9b", "starcoder2_15b", "llama3_2_vision_90b",
-          "seamless_m4t_medium")
-# where each unported architecture waits in ROADMAP.md §1
-_MILESTONE = {
-    "arctic_480b": "M4 (MoE and MLA)",
-    "deepseek_v2_236b": "M4 (MoE and MLA)",
-}
+          "seamless_m4t_medium", "arctic_480b", "deepseek_v2_236b")
 
 # CLI ids (dashes) -> module names
 _ALIASES = {a.replace("_", "-"): a for a in ARCHITECTURES}
@@ -51,10 +45,6 @@ def _module(name: str):
     key = _ALIASES.get(name, name)
     if key not in ARCHITECTURES:
         raise ValueError(f"unknown architecture {name!r}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"{name}: not ported to repro_torch yet (ported: {PORTED}); "
-            f"see ROADMAP.md §1 {_MILESTONE[key]}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

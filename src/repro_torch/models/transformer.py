@@ -7,9 +7,18 @@ StarCoder2-15B), ``"local"`` (the same with the config's sliding window:
 RecurrentGemma's attention layers), ``"rglru"`` (RG-LRU + dense MLP),
 ``"mlstm"`` and ``"slstm"`` (xLSTM's blocks, `models.ssm`), ``"xattn"``
 (gated cross-attention to the memory + gated MLP: Llama-3.2-Vision's
-image layers), ``"enc"`` (the encoder's block) and ``"dec"`` (self-
-and cross-attention + MLP: SeamlessM4T's decoder).  MoE and MLA are not
-ported yet and raise.
+image layers), ``"enc"`` (the encoder's block), ``"dec"`` (self-
+and cross-attention + MLP: SeamlessM4T's decoder), and ``"moe"`` /
+``"moe_residual"`` (self-attention + the routed MoE of `models.moe`,
+with shared experts or a dense residual MLP: DeepSeek-V2, Arctic).  A
+config with ``mla`` runs MLA in every self-attention block, its dense
+prefix layer included.
+
+Every block returns its auxiliary loss beside x and its cache (the MoE
+load-balance loss; 0.0 for the others), and `apply_decoder_stack` sums
+it over the layers, under remat too (the checkpointed function returns
+x and the loss).  `forward_hidden` returns the sum and `lm_loss` adds
+it to the cross-entropy.
 
 The memory is what cross-attention reads: a VLM's projected patch
 embeddings as given (the frontend is a stub, as in the reference), or
@@ -47,23 +56,25 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.packets import params_from_jax
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm
 from .config import ModelConfig
 from .layers import (dense_apply, dense_init, embed_apply, embed_init,
                      mlp_apply, mlp_init, norm_apply, norm_init)
 
-PORTED_KINDS = ("dense", "local", "rglru", "mlstm", "slstm", "enc",
-                "xattn", "dec")
-# leaves the reference keeps in float32 whatever the model's dtype
-FLOAT32_LEAVES = ("lam",)
+BLOCK_KINDS = ("dense", "local", "rglru", "mlstm", "slstm", "enc",
+               "xattn", "dec", "moe", "moe_residual")
+MOE_KINDS = ("moe", "moe_residual")
+# leaves the reference keeps in float32 whatever the model's dtype, by
+# the tail of their key path: RG-LRU's ``lam`` and the MoE router's
+# weight (any other ``w`` is cast to the model's dtype)
+FLOAT32_LEAVES = (("lam",), ("router", "w"))
 LOSS_CHUNK = 512    # seq positions per LM-head chunk (bounds logits memory)
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported to repro_torch yet "
-            f"(ported: {PORTED_KINDS}); see ROADMAP.md §1 M4 (MoE, MLA)")
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -109,11 +120,13 @@ def init_block(g: torch.Generator, kind: str, cfg: ModelConfig,
         }
     mixer = ({"rglru": ssm.init_rglru(g, cfg, device)} if kind == "rglru"
              else {"attn": attn.init_self_attention(g, cfg, device)})
+    ffn = ({"moe": moe_mod.init_moe(g, cfg, device)} if kind in MOE_KINDS
+           else {"mlp": mlp_init(g, d, cfg.d_ff, cfg.act, **kw)})
     return {
         "ln1": norm_init(d, cfg.norm, **kw),
         **mixer,
         "ln2": norm_init(d, cfg.norm, **kw),
-        "mlp": mlp_init(g, d, cfg.d_ff, cfg.act, **kw),
+        **ffn,
     }
 
 
@@ -166,21 +179,23 @@ def _cross_kv(p: dict, cache: Optional[dict], memory, cfg: ModelConfig):
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 cache=None, memory: Optional[torch.Tensor] = None,
                 window: Optional[int] = None):
-    """Returns (x, new_cache).  `memory` (B, M, d) feeds ``xattn`` and
-    ``dec``; in decode it is None and their caches hold its K/V."""
+    """Returns (x, new_cache, aux): aux is the MoE blocks' load-balance
+    loss (a float32 scalar) and 0.0 for the other kinds.  `memory` (B,
+    M, d) feeds ``xattn`` and ``dec``; in decode it is None and their
+    caches hold its K/V."""
     _check_kind(kind)
     if kind in ("mlstm", "slstm"):
         apply = ssm.apply_mlstm if kind == "mlstm" else ssm.apply_slstm
         h, new_c = apply(p["core"], norm_apply(p["ln"], x, cfg.norm), cfg,
                          state=cache)
-        return x + h, new_c
+        return x + h, new_c, 0.0
     if kind == "xattn":
         mem_kv, new_c = _cross_kv(p["xattn"], cache, memory, cfg)
         h = attn.apply_cross_attention(
             p["xattn"], norm_apply(p["ln1"], x, cfg.norm), cfg, mem_kv=mem_kv)
         x = x + torch.tanh(p["gate_attn"]) * h
         y = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.act)
-        return x + torch.tanh(p["gate_mlp"]) * y, new_c
+        return x + torch.tanh(p["gate_mlp"]) * y, new_c, 0.0
     if kind == "dec":
         h, new_self = attn.apply_self_attention(
             p["attn"], norm_apply(p["ln1"], x, cfg.norm), cfg, window=window,
@@ -194,7 +209,7 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         y = mlp_apply(p["mlp"], norm_apply(p["ln3"], x, cfg.norm), cfg.act)
         new_c = (None if cache is None
                  else {"self": new_self, "cross": new_cross})
-        return x + y, new_c
+        return x + y, new_c, 0.0
     if kind == "rglru":
         h, new_c = ssm.apply_rglru(
             p["rglru"], norm_apply(p["ln1"], x, cfg.norm), cfg, state=cache)
@@ -207,8 +222,11 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             p["attn"], norm_apply(p["ln1"], x, cfg.norm), cfg, window=win,
             cache=cache)
     x = x + h
-    y = mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg.norm), cfg.act)
-    return x + y, new_c
+    h2 = norm_apply(p["ln2"], x, cfg.norm)
+    if kind in MOE_KINDS:
+        y, aux = moe_mod.apply_moe(p["moe"], h2, cfg)
+        return x + y, new_c, aux
+    return x + mlp_apply(p["mlp"], h2, cfg.act), new_c, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -232,24 +250,28 @@ def apply_decoder_stack(layers: list[dict], x: torch.Tensor,
                         cfg: ModelConfig, *, cache: Optional[list] = None,
                         memory: Optional[torch.Tensor] = None,
                         window: Optional[int] = None, remat: bool = False):
-    """Returns (x, new_cache); new_cache is None without a cache.
-    ``remat`` (train only) checkpoints each block: the same values, with
-    its activations recomputed in the backward pass."""
+    """Returns (x, new_cache, aux_total); new_cache is None without a
+    cache, aux_total the blocks' aux losses summed (0.0 when no block
+    has one).  ``remat`` (train only) checkpoints each block: the same
+    values, x and aux, with its activations recomputed in the backward
+    pass."""
     new_cache = [] if cache is not None else None
+    aux_total = 0.0
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), layers,
                                       strict=True)):
         if remat and cache is None:
-            x = checkpoint(
+            x, aux = checkpoint(
                 lambda x, memory, kind=kind, p=p: apply_block(
-                    kind, p, x, cfg, memory=memory, window=window)[0],
+                    kind, p, x, cfg, memory=memory, window=window)[::2],
                 x, memory, use_reentrant=False)
-            continue
-        c = cache[i] if cache is not None else None
-        x, nc = apply_block(kind, p, x, cfg, cache=c, memory=memory,
-                            window=window)
-        if cache is not None:
-            new_cache.append(nc)
-    return x, new_cache
+        else:
+            c = cache[i] if cache is not None else None
+            x, nc, aux = apply_block(kind, p, x, cfg, cache=c, memory=memory,
+                                     window=window)
+            if cache is not None:
+                new_cache.append(nc)
+        aux_total = aux_total + aux
+    return x, new_cache, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +293,8 @@ def _check_lm(cfg: ModelConfig) -> None:
 def init_lm(g: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
     """Random LM parameters with the reference's scales (dense
     1/sqrt(d_in), embedding 0.02, norm scales one; RG-LRU's ``lam``
-    float32, uniform on [3, 8); cross-attention gates 0), drawn from `g`,
+    float32, uniform on [3, 8); the MoE router float32 at 0.02;
+    cross-attention gates 0), drawn from `g`,
     which must live on `device`.  An encoder-decoder config also gets
     ``encoder`` (its layers) and ``enc_norm``."""
     _check_lm(cfg)
@@ -299,8 +322,9 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     (G,) becomes one 0-d tensor a layer; float leaves are cast to
     ``cfg.dtype`` (bf16 bits stay exact: a uint16 view is reinterpreted,
     not converted), except those the reference keeps in float32 whatever
-    the model's dtype (FLOAT32_LEAVES: RG-LRU's ``lam``), which stay
-    float32."""
+    the model's dtype (FLOAT32_LEAVES: RG-LRU's ``lam``, the MoE
+    router's ``router.w``), which stay float32.  A stacked (G, E, d, ff)
+    expert leaf unstacks to one (E, d, ff) tensor a layer."""
     _check_lm(cfg)
     out = {"embed": tree["embed"],
            "decoder": _unstack(tree["decoder"], cfg),
@@ -333,16 +357,18 @@ def _unstack(stack: dict, cfg: ModelConfig) -> list:
     return layers + list(stack["suffix"])
 
 
-def _cast_floats(tree, dtype, name: str = ""):
-    """`tree` with its float leaves cast to `dtype`, and those named in
-    FLOAT32_LEAVES to float32."""
+def _cast_floats(tree, dtype, path: tuple = ()):
+    """`tree` with its float leaves cast to `dtype`, and those whose key
+    path ends in one of FLOAT32_LEAVES to float32."""
     if isinstance(tree, dict):
-        return {k: _cast_floats(v, dtype, k) for k, v in tree.items()}
+        return {k: _cast_floats(v, dtype, path + (k,))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_cast_floats(v, dtype) for v in tree)
+        return type(tree)(_cast_floats(v, dtype, path) for v in tree)
     if not tree.is_floating_point():
         return tree
-    return tree.to(torch.float32 if name in FLOAT32_LEAVES else dtype)
+    keep = any(path[-len(tail):] == tail for tail in FLOAT32_LEAVES)
+    return tree.to(torch.float32 if keep else dtype)
 
 
 def _lm_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
@@ -356,8 +382,8 @@ def run_encoder(params: dict, memory_emb: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
     """The encoder over (stub-)frontend embeddings (B, M, d), then
     ``enc_norm``.  Causal, as the reference's (ROADMAP.md §3 R8)."""
-    x, _ = apply_decoder_stack(params["encoder"], memory_emb,
-                               encoder_config(cfg))
+    x, _, _ = apply_decoder_stack(params["encoder"], memory_emb,
+                                  encoder_config(cfg))
     return norm_apply(params["enc_norm"], x, cfg.norm)
 
 
@@ -375,14 +401,14 @@ def _memory_states(params: dict, batch: dict, cfg: ModelConfig):
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                    memory=None, window=None, remat: bool = False):
-    """tokens (B, S) -> (final-normed hidden states (B, S, d), aux loss);
-    the aux loss is 0: no ported block has one.  `memory` is what
-    cross-attention reads (`_memory_states`: encoder states, not frame
-    embeddings)."""
+    """tokens (B, S) -> (final-normed hidden states (B, S, d), aux loss:
+    a float32 scalar, the MoE layers' load-balance losses summed, 0
+    without MoE).  `memory` is what cross-attention reads
+    (`_memory_states`: encoder states, not frame embeddings)."""
     x = embed_apply(params["embed"], tokens)
-    x, _ = apply_decoder_stack(params["decoder"], x, cfg, memory=memory,
-                               window=window, remat=remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = apply_decoder_stack(params["decoder"], x, cfg, memory=memory,
+                                    window=window, remat=remat)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     return norm_apply(params["final_norm"], x, cfg.norm), aux
 
 
@@ -433,8 +459,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     mem_len = 0 if mem_states is None else mem_states.shape[1]
     cache = make_decoder_cache(cfg, B, cache_len, window, mem_len, device)
     x = embed_apply(params["embed"], tokens)
-    x, cache = apply_decoder_stack(params["decoder"], x, cfg, cache=cache,
-                                   memory=mem_states, window=window)
+    x, cache, _ = apply_decoder_stack(params["decoder"], x, cfg, cache=cache,
+                                      memory=mem_states, window=window)
     h = norm_apply(params["final_norm"], x[:, -1:], cfg.norm)
     return _lm_logits(params, h, cfg), cache
 
@@ -444,7 +470,7 @@ def decode_step(params: dict, token: torch.Tensor, cache: list,
     """One-token decode: token (B, 1) int -> (logits (B,1,V), cache).
     The cache's tensors are updated in place."""
     x = embed_apply(params["embed"], token)
-    x, cache = apply_decoder_stack(params["decoder"], x, cfg, cache=cache,
-                                   window=window)
+    x, cache, _ = apply_decoder_stack(params["decoder"], x, cfg, cache=cache,
+                                      window=window)
     h = norm_apply(params["final_norm"], x, cfg.norm)
     return _lm_logits(params, h, cfg), cache

@@ -60,6 +60,15 @@ def _np_tree(J, tree):
     return J.jax.tree_util.tree_map(np.asarray, tree)
 
 
+def _fields(value):
+    """A config field for comparison across the two packages: a nested
+    config (MoEConfig, MLAConfig; each package has its own class) as
+    the dict of its fields."""
+    import dataclasses
+    return (dataclasses.asdict(value) if dataclasses.is_dataclass(value)
+            else value)
+
+
 def _f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
@@ -133,8 +142,9 @@ def _tokens(cfg, B, S, seed):
 
 def test_configs_build_and_the_m4_ones_still_raise(J):
     """Both M5 configs build in the port, full and reduced, equal to the
-    reference's; their layer kinds are the reference's; Arctic-480B and
-    DeepSeek-V2-236B still raise and point at M4."""
+    reference's; their layer kinds are the reference's.  Arctic-480B and
+    DeepSeek-V2-236B, which raised until M4 was ported, build now and
+    equal the reference's; an unknown name raises."""
     import dataclasses
     for arch, alias in ((VISION, "llama-3.2-vision-90b"),
                         (SEAMLESS, "seamless-m4t-medium")):
@@ -143,7 +153,8 @@ def test_configs_build_and_the_m4_ones_still_raise(J):
             tc = getattr(tconfigs, getter)(alias)
             for f in dataclasses.fields(jc):
                 if f.name != "dtype":
-                    assert getattr(tc, f.name) == getattr(jc, f.name), \
+                    assert _fields(getattr(tc, f.name)) == _fields(
+                        getattr(jc, f.name)), \
                         (arch, getter, f.name)
             assert tc.padded_vocab == jc.padded_vocab
             tc.validate()
@@ -155,9 +166,17 @@ def test_configs_build_and_the_m4_ones_still_raise(J):
     assert ttf.layer_kinds(seamless) == ["dec"] * 12
     assert ttf.layer_kinds(ttf.encoder_config(seamless)) == ["enc"] * 12
     assert seamless.padded_vocab == 256256
+    # the M4 configs build now and equal the reference's field for field
     for arch in ("arctic-480b", "deepseek-v2-236b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 M4"):
-            tconfigs.get_config(arch)
+        jc = J.configs.get_config(arch)
+        tc = tconfigs.get_config(arch)
+        for f in dataclasses.fields(jc):
+            if f.name != "dtype":
+                assert _fields(getattr(tc, f.name)) == _fields(
+                        getattr(jc, f.name)), (arch, f)
+        tc.validate()
+    with pytest.raises(ValueError, match="unknown"):
+        tconfigs.get_config("no-such-model")
 
 
 @pytest.mark.parametrize("arch", [VISION, SEAMLESS])
@@ -290,8 +309,8 @@ def test_block_matches_reference(J, arch, kind, name):
     jm, tm = _as(J, _memory(tcfg, B, M, 8), jdt, tdt)
     mem = (None, None) if kind == "enc" else (jm, tm)
     want, jc, _ = J.tf.apply_block(kind, jp, jx, jcfg, memory=mem[0])
-    got, tc = ttf.apply_block(kind, tp, tx, tcfg, memory=mem[1])
-    assert jc is None and tc is None
+    got, tc, aux = ttf.apply_block(kind, tp, tx, tcfg, memory=mem[1])
+    assert jc is None and tc is None and aux == 0.0
     assert got.shape == (B, S, d) and got.dtype == tdt
     np.testing.assert_allclose(_f32(got), _f32(want), **tol)
     if kind == "enc":
@@ -303,14 +322,14 @@ def test_block_matches_reference(J, arch, kind, name):
                                   device="cpu")
     want, jcache, _ = J.tf.apply_block(kind, jp, jx, jcfg, cache=jcache,
                                        memory=jm)
-    got, tcache = ttf.apply_block(kind, tp, tx, tcfg, cache=tcache,
-                                  memory=tm)
+    got, tcache, _ = ttf.apply_block(kind, tp, tx, tcfg, cache=tcache,
+                                     memory=tm)
     np.testing.assert_allclose(_f32(got), _f32(want), **tol)
     _caches_close(tcache, jcache, tol)
     jx1, tx1 = _as(J, rng.standard_normal((B, 1, d)).astype(np.float32),
                    jdt, tdt)
     want, jcache, _ = J.tf.apply_block(kind, jp, jx1, jcfg, cache=jcache)
-    got, tcache = ttf.apply_block(kind, tp, tx1, tcfg, cache=tcache)
+    got, tcache, _ = ttf.apply_block(kind, tp, tx1, tcfg, cache=tcache)
     assert got.shape == (B, 1, d)
     np.testing.assert_allclose(_f32(got), _f32(want), **tol)
     _caches_close(tcache, jcache, tol)

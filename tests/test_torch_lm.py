@@ -62,6 +62,15 @@ def _np_tree(J, tree):
     return J.jax.tree_util.tree_map(np.asarray, tree)
 
 
+def _fields(value):
+    """A config field for comparison across the two packages: a nested
+    config (MoEConfig, MLAConfig; each package has its own class) as
+    the dict of its fields."""
+    import dataclasses
+    return (dataclasses.asdict(value) if dataclasses.is_dataclass(value)
+            else value)
+
+
 def _f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
@@ -282,21 +291,24 @@ def _lm_leaves(params: dict) -> list:
 def test_configs_match_reference_and_unported_ones_raise(J):
     """Every ported config (Qwen3-4B, Qwen3-8B, Qwen2-72B, xLSTM-125M,
     RecurrentGemma-9B, StarCoder2-15B, Llama-3.2-Vision-90B,
-    SeamlessM4T-medium), full and reduced, equals the reference's field
-    for field; an unported one raises and names its milestone in
-    ROADMAP.md."""
+    SeamlessM4T-medium, Arctic-480B, DeepSeek-V2-236B: all ten), full and
+    reduced, equals the reference's field for field; an unknown name
+    raises."""
     import dataclasses
     assert tconfigs.PORTED == ("qwen3_4b", "qwen3_8b", "qwen2_72b",
                                "xlstm_125m", "recurrentgemma_9b",
                                "starcoder2_15b", "llama3_2_vision_90b",
-                               "seamless_m4t_medium")
+                               "seamless_m4t_medium", "arctic_480b",
+                               "deepseek_v2_236b")
+    assert sorted(tconfigs.PORTED) == sorted(tconfigs.ARCHITECTURES)
     for arch in tconfigs.PORTED:
         for getter in ("get_config", "reduced_config"):
             jc = getattr(J.configs, getter)(arch)
             tc = getattr(tconfigs, getter)(arch.replace("_", "-"))
             for f in dataclasses.fields(jc):
                 if f.name != "dtype":
-                    assert getattr(tc, f.name) == getattr(jc, f.name), \
+                    assert _fields(getattr(tc, f.name)) == _fields(
+                        getattr(jc, f.name)), \
                         (arch, getter, f.name)
             for prop in ("resolved_head_dim", "padded_vocab",
                          "resolved_lru_width"):
@@ -309,8 +321,10 @@ def test_configs_match_reference_and_unported_ones_raise(J):
     assert tconfigs.get_config("starcoder2-15b").window == 4096
     assert ttf.layer_kinds(tconfigs.get_config("recurrentgemma-9b")) == (
         ["rglru", "rglru", "local"] * 12 + ["rglru", "rglru"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 M4"):
-        tconfigs.get_config("arctic-480b")
+    assert ttf.layer_kinds(tconfigs.get_config("arctic-480b")) == (
+        ["moe_residual"] * 35)
+    assert ttf.layer_kinds(tconfigs.get_config("deepseek-v2-236b")) == (
+        ["dense"] + ["moe"] * 59)
     with pytest.raises(ValueError, match="unknown"):
         tconfigs.get_config("no-such-model")
     assert tconfigs.list_architectures() == J.configs.list_architectures()

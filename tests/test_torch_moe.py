@@ -1,0 +1,704 @@
+"""The port's MoE and MLA against the JAX package, on the CPU.
+
+Covered: `_route_group` (the top-k experts, each pair's capacity slot,
+the set of dropped (token, choice) pairs on a router built to overload
+expert 0, y and aux) in float32 and bf16; `apply_moe` over 4 routing
+groups (TARGET_GROUP set to 16 in both packages) with shared experts
+(DeepSeek-V2) and a dense residual (Arctic); MLA non-absorbed and
+absorbed through `apply_self_attention` (train, prefill into a cache,
+4 decode steps; a window shorter than the prompt, so the ring rolls;
+the q-chunked routes with CHUNK_THRESHOLD set small in both packages);
+the ``moe`` and ``moe_residual`` blocks through `apply_block`;
+`lm_params_from_jax` (the router float32 and bit for bit, every other
+leaf's bf16 bits, the expert stacks per layer); `forward_hidden`,
+`lm_loss` and its gradient (the router's included), aux surviving
+remat; `prefill` and 4 decode steps; one train step per aggregation
+mode and `client_gradients`; the train driver on the reduced
+DeepSeek-V2-236B; and R9 (ROADMAP.md §3), the reference's per-group
+capacity, in both packages.  The models are the reduced Arctic-480B (2
+``moe_residual`` layers, GQA 8/2, 4 experts top-2) and the reduced
+DeepSeek-V2-236B (a dense MLA layer and 2 ``moe`` layers, 4 experts
+top-2, one shared), with the reference's weights carried across.
+
+Tolerances, those of `tests/test_torch_lm.py`: float32 rtol = atol =
+2e-4 (summation order); bf16 rtol 0.08, atol 0.05.  Routing is held
+exactly (the same experts, slots and dropped pairs).  bf16 is held
+where both sides route the same input (`_route_group`, `apply_moe`,
+MLA): through attention first, a bf16 rounding of the router's input
+can move a token across a top-k tie, which changes that token's output
+by a whole expert, so blocks and models are held in float32.
+"""
+import copy
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs as tconfigs
+from repro_torch.core import packets as tpackets
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
+from repro_torch.models import attention as tattn
+from repro_torch.models import moe as tmoe
+from repro_torch.models import transformer as ttf
+from repro_torch.optim import sgd as tsgd
+
+F32_TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_TOL = dict(rtol=0.08, atol=0.05)
+# gradients, float32 against the reference: summation order, as
+# tests/test_torch_train.py holds them
+F32_GRAD = dict(rtol=1e-4, scale=1e-5)
+ARCTIC, DEEPSEEK = "arctic_480b", "deepseek_v2_236b"
+PROMPT = 16
+DECODE_STEPS = 4
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX reference, imported here and not at module level."""
+    jax = pytest.importorskip("jax")
+    from repro import configs as jconfigs
+    from repro.launch import steps as jsteps
+    from repro.models import attention as jattn
+    from repro.models import moe as jmoe
+    from repro.models import transformer as jtf
+    from repro.optim import sgd as jsgd
+    return SimpleNamespace(jax=jax, jnp=jax.numpy, configs=jconfigs,
+                           steps=jsteps, attn=jattn, moe=jmoe, tf=jtf,
+                           sgd=jsgd)
+
+
+def _np_tree(J, tree):
+    return J.jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _tol(name):
+    return F32_TOL if name == "f32" else BF16_TOL
+
+
+def _cfgs(J, arch, name, **overrides):
+    """(reference, port) reduced configs of `arch` in float32 ("f32") or
+    bf16; ``absorbed`` sets the MLA field, ``capacity_factor`` the MoE
+    one."""
+    jdt, tdt = {"f32": (J.jnp.float32, torch.float32),
+                "bf16": (J.jnp.bfloat16, torch.bfloat16)}[name]
+    out = []
+    for cfg, dt in ((J.configs.reduced_config(arch), jdt),
+                    (tconfigs.reduced_config(arch.replace("_", "-")), tdt)):
+        cfg = cfg.with_overrides(dtype=dt)
+        if "absorbed" in overrides:
+            cfg = cfg.with_overrides(mla=dataclasses.replace(
+                cfg.mla, absorbed=overrides["absorbed"]))
+        if "capacity_factor" in overrides:
+            cfg = cfg.with_overrides(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=overrides["capacity_factor"]))
+        out.append(cfg)
+    return tuple(out)
+
+
+def _both(J, np_tree):
+    """A numpy parameter tree as the reference's and the port's."""
+    return (J.jax.tree_util.tree_map(J.jnp.asarray, np_tree),
+            tpackets.params_from_jax(np_tree, device="cpu"))
+
+
+def _as(J, x: np.ndarray, jdt, tdt):
+    return J.jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+def _close_to_scale(got, want, *, rtol, scale, what=""):
+    """|got - want| <= rtol·|want| + scale·max|want| elementwise."""
+    got, want = _f32(got), _f32(want)
+    atol = scale * float(np.abs(want).max()) if want.size else 0.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                               err_msg=what)
+
+
+def _caches_close(got, want, tol, where=""):
+    """A port cache (nested dicts; "pos" an int) against the
+    reference's, field by field."""
+    if isinstance(got, dict):
+        assert sorted(got) == sorted(want), where
+        for key in got:
+            _caches_close(got[key], want[key], tol, f"{where}.{key}")
+    elif isinstance(got, int):
+        assert got == int(want), where
+    else:
+        assert tuple(got.shape) == want.shape, where
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol,
+                                   err_msg=where)
+
+
+_MODELS: dict = {}
+
+
+def _reduced(J, arch, name="f32", **overrides):
+    """The reduced `arch` in both packages with the reference's weights
+    (drawn once per architecture and dtype, in JAX; `overrides` change
+    no parameter's shape)."""
+    key = (arch, name, tuple(sorted(overrides.items())))
+    if key not in _MODELS:
+        jcfg, tcfg = _cfgs(J, arch, name, **overrides)
+        if (arch, name) not in _MODELS:   # the overrides keep the layout
+            jparams = J.tf.init_lm(J.jax.random.PRNGKey(0), jcfg)
+            np_params = _np_tree(J, jparams)
+            _MODELS[arch, name] = (jparams, np_params, ttf.lm_params_from_jax(
+                np_params, tcfg, device="cpu"))
+        jparams, np_params, tparams = _MODELS[arch, name]
+        _MODELS[key] = SimpleNamespace(jcfg=jcfg, tcfg=tcfg, jparams=jparams,
+                                       np_params=np_params, tparams=tparams)
+    return _MODELS[key]
+
+
+def _tokens(cfg, B, S, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+def _reference_routing(J, monkeypatch, run):
+    """`run()` with `jax.nn.one_hot` watched: the reference's
+    `_route_group` one-hots the top-k experts (T, k) and then each
+    pair's slot (T, k); returns (run's result, experts, slots)."""
+    seen = []
+    one_hot = J.jax.nn.one_hot
+
+    def spy(x, num_classes, **kw):
+        seen.append(np.asarray(x))
+        return one_hot(x, num_classes, **kw)
+
+    monkeypatch.setattr(J.jax.nn, "one_hot", spy)
+    out = run()
+    monkeypatch.setattr(J.jax.nn, "one_hot", one_hot)
+    assert len(seen) == 2
+    return out, seen[0].astype(np.int64), seen[1].astype(np.int64)
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_route_group_matches_reference(J, monkeypatch, name, skewed):
+    """One group of T = 24 tokens of the reduced Arctic (E = 4, top-2,
+    C = 15): the same top-k experts, the same capacity slot for every
+    (token, choice) pair, so the same dropped pairs, and y and aux
+    within tolerance.  ``skewed``: the router favours expert 0 and the
+    tokens lean its way, so most first choices land there and pairs are
+    dropped (token-major, choice-minor priority)."""
+    jcfg, tcfg = _cfgs(J, ARCTIC, name)
+    jdt, tdt = jcfg.dtype, tcfg.dtype
+    tree = _np_tree(J, J.moe.init_moe(J.jax.random.PRNGKey(1), jcfg))
+    rng = np.random.default_rng(2)
+    T, d, E = 24, tcfg.d_model, tcfg.moe.num_experts
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    if skewed:
+        tree["router"]["w"] = (0.02 * rng.standard_normal((d, E))).astype(
+            np.float32)
+        tree["router"]["w"][:, 0] += 0.02
+        x += 0.3
+    jp, tp = _both(J, tree)
+    assert tp["router"]["w"].dtype == torch.float32
+    jx, tx = _as(J, x, jdt, tdt)
+    (want, jaux), jidx, jpos = _reference_routing(
+        J, monkeypatch, lambda: J.moe._route_group(jp, jx, jcfg))
+    _, gates, idx, pos, C = tmoe._route(tp, tx, tcfg)
+    assert C == J.moe._capacity(T, E, 2, 1.25) == 15
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    np.testing.assert_array_equal(pos.numpy(), jpos)
+    dropped = {tuple(ij) for ij in np.argwhere(pos.numpy() >= C)}
+    assert dropped == {tuple(ij) for ij in np.argwhere(jpos >= C)}
+    assert all(float(gates[t, c]) == 0.0 for t, c in dropped)
+    # a pair's slot counts the earlier pairs of its expert in token-major,
+    # choice-minor order: token 0's second choice before token 1's first
+    flat = jidx.reshape(-1)
+    np.testing.assert_array_equal(
+        jpos.reshape(-1), [np.sum(flat[:i] == e) for i, e in enumerate(flat)])
+    if skewed:
+        assert 0 < len(dropped) < T
+    else:
+        assert not dropped
+    got, aux = tmoe._route_group(tp, tx, tcfg)
+    assert got.shape == (T, d) and got.dtype == tdt
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(name))
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", [ARCTIC, DEEPSEEK])
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_apply_moe_over_several_groups_matches_reference(
+        J, monkeypatch, arch, name):
+    """TARGET_GROUP = 16 in both packages and B = 2, S = 32: four groups
+    of 2 x 8 positions, flattened batch-major, each with its own
+    capacity; y (with Arctic's dense residual or DeepSeek-V2's shared
+    expert added) and the group-mean aux."""
+    for mod in (J.moe, tmoe):
+        monkeypatch.setattr(mod, "TARGET_GROUP", 16)
+    jcfg, tcfg = _cfgs(J, arch, name)
+    tree = _np_tree(J, J.moe.init_moe(J.jax.random.PRNGKey(3), jcfg))
+    assert ("residual" in tree) == (arch == ARCTIC)
+    assert ("shared" in tree) == (arch == DEEPSEEK)
+    jp, tp = _both(J, tree)
+    x = np.random.default_rng(4).standard_normal(
+        (2, 32, tcfg.d_model)).astype(np.float32)
+    jx, tx = _as(J, x, jcfg.dtype, tcfg.dtype)
+    want, jaux = J.moe.apply_moe(jp, jx, jcfg)
+    groups = []
+    route = tmoe._route_group
+    monkeypatch.setattr(tmoe, "_route_group", lambda p, xt, cfg: (
+        groups.append(xt.shape), route(p, xt, cfg))[1])
+    got, aux = tmoe.apply_moe(tp, tx, tcfg)
+    assert groups == [(16, tcfg.d_model)] * 4
+    assert got.shape == x.shape and got.dtype == tcfg.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(name))
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+def _mla_run(J, jcfg, tcfg, jp, tp, x, *, window, name):
+    """`apply_self_attention` on both sides: prefill of x into an empty
+    cache (ring of `window` slots, or S + DECODE_STEPS), then
+    DECODE_STEPS one-token steps; outputs and caches held each time."""
+    B, S, d = x.shape
+    tol = _tol(name)
+    jdt, tdt = jcfg.dtype, tcfg.dtype
+    cache_len = S + DECODE_STEPS
+    jc = J.attn.make_kv_cache(jcfg, B, cache_len, window)
+    tc = tattn.make_kv_cache(tcfg, B, cache_len, window, device="cpu")
+    assert sorted(tc) == ["ckv", "krope", "pos"]
+    jattend = J.jax.jit(lambda p, x, c: J.attn.apply_self_attention(
+        p, x, jcfg, window=window, cache=c))
+    jx, tx = _as(J, x, jdt, tdt)
+    want, jc = jattend(jp, jx, jc)
+    got, tc = tattn.apply_self_attention(tp, tx, tcfg, window=window,
+                                         cache=tc)
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    _caches_close(tc, jc, tol, "prefill")
+    rng = np.random.default_rng(6)
+    for i in range(DECODE_STEPS):
+        jx1, tx1 = _as(J, rng.standard_normal((B, 1, d)).astype(np.float32),
+                       jdt, tdt)
+        want, jc = jattend(jp, jx1, jc)
+        got, tc = tattn.apply_self_attention(tp, tx1, tcfg, window=window,
+                                             cache=tc)
+        assert got.shape == (B, 1, d)
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol,
+                                   err_msg=f"decode step {i}")
+        _caches_close(tc, jc, tol, f"step {i}")
+    assert tc["pos"] == S + DECODE_STEPS
+
+
+@pytest.mark.parametrize("absorbed", [False, True])
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_mla_matches_reference(J, absorbed, name):
+    """The reduced DeepSeek-V2's MLA (4 heads, r 64, q rank 96, nope 32,
+    rope 16, v 32): without a cache (train), then prefill of S = 13 and
+    4 decode steps into a full cache, and into a ring of 8 slots (S >
+    window: prefill rolls the tail by S % 8, decode wraps)."""
+    jcfg, tcfg = _cfgs(J, DEEPSEEK, name, absorbed=absorbed)
+    jp, tp = _both(J, _np_tree(J, J.attn.init_self_attention(
+        J.jax.random.PRNGKey(5), jcfg)))
+    assert sorted(tp) == ["kv_norm", "q_norm", "w_dkv", "w_dq", "w_kr",
+                          "w_uk", "w_uq", "w_uv", "wo"]
+    x = np.random.default_rng(7).standard_normal(
+        (2, 13, tcfg.d_model)).astype(np.float32)
+    jx, tx = _as(J, x, jcfg.dtype, tcfg.dtype)
+    want, jc = J.jax.jit(lambda p, x: J.attn.apply_self_attention(
+        p, x, jcfg, window=None))(jp, jx)
+    got, tc = tattn.apply_self_attention(tp, tx, tcfg, window=None)
+    assert jc is None and tc is None and got.dtype == tcfg.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(name))
+    for window in (None, 8):
+        _mla_run(J, jcfg, tcfg, jp, tp, x, window=window, name=name)
+
+
+@pytest.mark.parametrize("absorbed", [False, True])
+def test_mla_chunked_routes_match_reference(J, monkeypatch, absorbed):
+    """CHUNK_THRESHOLD = 8 and Q_CHUNK = 4 in both packages: a prompt of
+    13 takes MLA's q-chunked route (`_attend_chunked`, or
+    `_latent_attend_chunked` when absorbed), with and without a window
+    of 6, float32; and the chunked route equals the direct one."""
+    jcfg, tcfg = _cfgs(J, DEEPSEEK, "f32", absorbed=absorbed)
+    jp, tp = _both(J, _np_tree(J, J.attn.init_self_attention(
+        J.jax.random.PRNGKey(8), jcfg)))
+    x = np.random.default_rng(9).standard_normal(
+        (2, 13, tcfg.d_model)).astype(np.float32)
+    jx, tx = J.jnp.asarray(x), torch.from_numpy(x)
+    direct = {w: tattn.apply_self_attention(tp, tx, tcfg, window=w)[0]
+              for w in (None, 6)}
+    for mod in (J.attn, tattn):
+        monkeypatch.setattr(mod, "CHUNK_THRESHOLD", 8)
+        monkeypatch.setattr(mod, "Q_CHUNK", 4)
+    name = "_latent_attend_chunked" if absorbed else "_attend_chunked"
+    calls = []
+    chunked = getattr(tattn, name)
+    monkeypatch.setattr(tattn, name, lambda *a, **kw: (
+        calls.append(1), chunked(*a, **kw))[1])
+    for w in (None, 6):
+        want, _ = J.attn.apply_self_attention(jp, jx, jcfg, window=w)
+        got, _ = tattn.apply_self_attention(tp, tx, tcfg, window=w)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+        np.testing.assert_allclose(got.numpy(), direct[w].numpy(),
+                                   **F32_TOL)
+    assert len(calls) == 2
+
+
+# ---------------------------------------------------------------------------
+# blocks and parameters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch, kind", [(ARCTIC, "moe_residual"),
+                                        (DEEPSEEK, "moe")])
+def test_moe_block_matches_reference(J, arch, kind):
+    """`apply_block` of one MoE block (Arctic: GQA + routed experts + the
+    dense residual; DeepSeek-V2: MLA + routed experts + the shared
+    expert), float32: without a cache, then prefill of S = 9 into an
+    empty cache and one decode step; x, aux and every cache field."""
+    jcfg, tcfg = _cfgs(J, arch, "f32")
+    jp, tp = _both(J, _np_tree(J, J.tf.init_block(
+        J.jax.random.PRNGKey(10), kind, jcfg)))
+    assert sorted(tp) == ["attn", "ln1", "ln2", "moe"]
+    rng = np.random.default_rng(11)
+    B, S, d = 2, 9, tcfg.d_model
+    x = rng.standard_normal((B, S, d)).astype(np.float32)
+    jblock = J.jax.jit(lambda p, x, c: J.tf.apply_block(kind, p, x, jcfg,
+                                                        cache=c))
+    want, jc, jaux = jblock(jp, J.jnp.asarray(x), None)
+    got, tc, aux = ttf.apply_block(kind, tp, torch.from_numpy(x), tcfg)
+    assert jc is None and tc is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    assert float(aux) > 0
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+
+    jcache = J.tf.make_block_cache(kind, jcfg, B, S + 1, None)
+    tcache = ttf.make_block_cache(kind, tcfg, B, S + 1, None, device="cpu")
+    for xi in (x, rng.standard_normal((B, 1, d)).astype(np.float32)):
+        want, jcache, jaux = jblock(jp, J.jnp.asarray(xi), jcache)
+        got, tcache, aux = ttf.apply_block(kind, tp, torch.from_numpy(xi),
+                                           tcfg, cache=tcache)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+        _caches_close(tcache, jcache, F32_TOL)
+    assert tcache["pos"] == S + 1
+
+
+def _ref_layers(J, tree: dict, cfg) -> list:
+    """The reference's per-layer trees of a decoder tree in layer order,
+    each scanned group's leading axis indexed."""
+    prefix, pattern, _ = cfg.decoder_layer_kinds()
+    out = list(tree["prefix"])
+    for gi in range(cfg.n_scan_groups()):
+        out += [J.jax.tree_util.tree_map(lambda x, gi=gi: x[gi],
+                                         tree["scan"][f"b{j}"])
+                for j in range(len(pattern))]
+    return out + list(tree["suffix"])
+
+
+@pytest.mark.parametrize("arch", [ARCTIC, DEEPSEEK])
+def test_lm_params_from_jax_keeps_the_router_float32(J, arch):
+    """The reduced model in bf16: every layer's router ``w`` stays
+    float32 and equals the reference's bit for bit; every other leaf
+    keeps its bf16 bits; the (G, E, d, ff) expert stacks unstack to one
+    (E, d, ff) tensor a layer; the port's own init has the same layout
+    and dtypes."""
+    m = _reduced(J, arch, "bf16")
+    cfg, tp = m.tcfg, m.tparams
+    jlayers = _ref_layers(J, m.np_params["decoder"], cfg)
+    assert len(tp["decoder"]) == len(jlayers) == cfg.num_layers
+    routers = 0
+    for i, layer in enumerate(tp["decoder"]):
+        jleaves = J.jax.tree_util.tree_flatten_with_path(jlayers[i])[0]
+        tleaves, _ = tpackets.tree_flatten(layer)
+        assert len(tleaves) == len(jleaves)
+        for (path, want), got in zip(jleaves, tleaves, strict=True):
+            where = (i, J.jax.tree_util.keystr(path))
+            assert tuple(got.shape) == want.shape, where
+            if where[1] == "['moe']['router']['w']":
+                routers += 1
+                assert got.dtype == torch.float32, where
+                assert want.dtype == np.float32, where
+                np.testing.assert_array_equal(got.numpy(), want)
+                continue
+            assert got.dtype == torch.bfloat16, where
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                          want.view(np.int16), err_msg=where)
+        if "moe" in layer:
+            E, d = cfg.moe.num_experts, cfg.d_model
+            assert layer["moe"]["w_gate"].shape == (E, d,
+                                                    cfg.moe.d_ff_expert)
+    assert routers == sum(k.startswith("moe") for k in ttf.layer_kinds(cfg))
+    own = ttf.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for a, b in zip(tpackets.tree_flatten(own["decoder"])[0],
+                    tpackets.tree_flatten(tp["decoder"])[0], strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
+# ---------------------------------------------------------------------------
+# the LM: loss, gradients, serving
+# ---------------------------------------------------------------------------
+
+def _lm_batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels[0, :3] = -1
+    return {"tokens": _tokens(cfg, B, S, seed + 1), "labels": labels}
+
+
+def _port_loss_and_grads(params, batch, cfg, remat=True):
+    leaves, treedef = tpackets.tree_flatten(params)
+    live = [t.detach().requires_grad_() for t in leaves]
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    loss, parts = ttf.lm_loss(tpackets.tree_unflatten(treedef, live), tb,
+                              cfg, remat=remat)
+    return loss, parts, torch.autograd.grad(loss, live)
+
+
+@pytest.mark.parametrize("arch", [ARCTIC, DEEPSEEK])
+def test_lm_loss_and_grads_match_reference(J, arch):
+    """`forward_hidden`, and `lm_loss` = xent + aux with its gradient on
+    every leaf (the routers' included) against `jax.value_and_grad` of
+    the reference's, float32, remat on both sides: the loss, xent and
+    aux to 1e-6 relative, each gradient leaf to F32_GRAD."""
+    m = _reduced(J, arch)
+    batch = _lm_batch(m.tcfg, 2, 24, seed=12)
+    jh, jaux_h = J.jax.jit(lambda p, t: J.tf.forward_hidden(p, t, m.jcfg))(
+        m.jparams, J.jnp.asarray(batch["tokens"]))
+    th, aux_h = ttf.forward_hidden(
+        m.tparams, torch.from_numpy(batch["tokens"]).long(), m.tcfg)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **F32_TOL)
+    assert aux_h.dtype == torch.float32 and aux_h.shape == ()
+    np.testing.assert_allclose(float(aux_h), float(jaux_h), rtol=1e-6)
+
+    (jloss, jparts), jgrads = J.jax.jit(J.jax.value_and_grad(
+        lambda p: J.tf.lm_loss(p, {k: J.jnp.asarray(v)
+                                   for k, v in batch.items()}, m.jcfg),
+        has_aux=True))(m.jparams)
+    loss, parts, grads = _port_loss_and_grads(m.tparams, batch, m.tcfg)
+    assert float(parts["aux"]) > 0
+    for got, want in ((loss, jloss), (parts["xent"], jparts["xent"]),
+                      (parts["aux"], jparts["aux"])):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(float(loss),
+                               float(parts["xent"] + parts["aux"]),
+                               rtol=1e-7)
+    want = tpackets.tree_flatten(
+        ttf.lm_params_from_jax(_np_tree(J, jgrads), m.tcfg, device="cpu"))[0]
+    for i, (g, w) in enumerate(zip(grads, want, strict=True)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_to_scale(g, w, **F32_GRAD, what=f"leaf {i}")
+    gtree = tpackets.tree_unflatten(tpackets.tree_flatten(m.tparams)[1],
+                                    list(grads))
+    router = [layer["moe"]["router"]["w"] for layer in gtree["decoder"]
+              if "moe" in layer]
+    assert router and all(float(g.abs().max()) > 0 for g in router)
+
+
+@pytest.mark.parametrize("arch", [ARCTIC, DEEPSEEK])
+def test_aux_survives_remat(J, arch):
+    """With remat the checkpointed blocks return x and aux: the same
+    nonzero aux, loss and gradients as without it."""
+    m = _reduced(J, arch)
+    batch = _lm_batch(m.tcfg, 2, 20, seed=13)
+    on = _port_loss_and_grads(m.tparams, batch, m.tcfg, remat=True)
+    off = _port_loss_and_grads(m.tparams, batch, m.tcfg, remat=False)
+    assert float(on[1]["aux"]) > 0
+    assert torch.equal(on[1]["aux"], off[1]["aux"])
+    assert torch.equal(on[0], off[0])
+    for a, b in zip(on[2], off[2], strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+SERVE_CASES = [pytest.param(ARCTIC, None, id="arctic"),
+               pytest.param(DEEPSEEK, False, id="deepseek"),
+               pytest.param(DEEPSEEK, True, id="deepseek-absorbed")]
+
+
+_SERVED: dict = {}
+
+
+def _served(J, m, prompt):
+    """`_serve` of `prompt` for DECODE_STEPS steps, once per model."""
+    if id(m) not in _SERVED:
+        _SERVED[id(m)] = _serve(J, m, prompt, DECODE_STEPS)
+    return _SERVED[id(m)]
+
+
+def _serve(J, m, prompt, steps):
+    """Prefill `prompt` and run `steps` decode steps in both packages,
+    both fed the reference's greedy tokens; returns the per-step logits
+    (reference, port), the fed tokens and the caches (the port's as a
+    copy, so a caller may run on from it)."""
+    cache_len = prompt.shape[1] + steps
+    jl, jc = J.jax.jit(lambda p, t: J.tf.prefill(
+        p, t, m.jcfg, cache_len=cache_len))(m.jparams, J.jnp.asarray(prompt))
+    jdecode = J.jax.jit(lambda p, t, c: J.tf.decode_step(p, t, c, m.jcfg))
+    tl, tc = ttf.prefill(m.tparams, torch.from_numpy(prompt).long(), m.tcfg,
+                         cache_len=cache_len)
+    jlog, tlog, fed = [np.asarray(jl)], [tl.numpy()], []
+    vocab = m.tcfg.vocab_size
+    for _ in range(steps):
+        tok = np.asarray(J.jnp.argmax(jl[..., :vocab], axis=-1), np.int32)
+        fed.append(tok)
+        jl, jc = jdecode(m.jparams, J.jnp.asarray(tok), jc)
+        tl, tc = ttf.decode_step(m.tparams, torch.from_numpy(tok).long(),
+                                 tc, m.tcfg)
+        jlog.append(np.asarray(jl))
+        tlog.append(tl.numpy())
+    return jlog, tlog, np.concatenate(fed, axis=1), jc, copy.deepcopy(tc)
+
+
+@pytest.mark.parametrize("arch, absorbed", SERVE_CASES)
+def test_prefill_and_decode_match_reference(J, arch, absorbed):
+    """`prefill` of 2 x 16 ids and 4 `decode_step`s, float32, fed the
+    reference's greedy tokens: every step's logits and, at the end,
+    every layer's cache (GQA or MLA) against the reference's; then the
+    serve step's greedy token."""
+    over = {} if absorbed is None else {"absorbed": absorbed}
+    m = _reduced(J, arch, **over)
+    jlog, tlog, _, jc, tc = _served(J, m, _tokens(m.tcfg, 2, PROMPT, 14))
+    for i, (a, b) in enumerate(zip(tlog, jlog, strict=True)):
+        np.testing.assert_allclose(a, b, **F32_TOL, err_msg=f"step {i}")
+    jlayers = _ref_layers(J, jc, m.tcfg)
+    for i, (got, want) in enumerate(zip(tc, jlayers, strict=True)):
+        _caches_close(got, want, F32_TOL, f"layer {i}")
+        assert got["pos"] == PROMPT + DECODE_STEPS
+    nxt, lp, _ = tsteps.make_serve_step(m.tcfg)(
+        m.tparams, copy.deepcopy(tc), torch.zeros((2, 1), dtype=torch.long))
+    assert nxt.shape == (2, 1) and bool(torch.isfinite(lp).all())
+
+
+# R9: at the published capacity factor a cached decode step routes its B
+# tokens as one group with C = ceil(B·k/E·1.25) slots an expert, a fresh
+# forward routes all of its tokens as one group with a larger C, and the
+# two drop different pairs.  Measured here (the reduced models, B = 2,
+# a 16-id prompt, 4 decode steps, float32), the last step's max |cached
+# - fresh|: Arctic 1.4039 and DeepSeek-V2 0.8507 in both packages at
+# 1.25, at most 3.1e-6 at E / top_k (ROADMAP.md §3 R9)
+R9_DIFFERS = 1e-2          # the published factor: far above rounding
+R9_AGREES = 1e-4           # C = T: nothing can be dropped
+
+
+@pytest.mark.parametrize("arch", [ARCTIC, DEEPSEEK])
+def test_cached_decode_is_not_the_fresh_forward_r9(J, arch):
+    """R9, the reference's per-group capacity, which the port copies: at
+    the published capacity_factor (1.25) the last decode step's logits
+    differ from a fresh forward over the grown sequence, by the same
+    amount in both packages; at capacity_factor = E / top_k (C = T, no
+    pair can be dropped) they agree within 1e-4 in both."""
+    mc = J.configs.reduced_config(arch).moe
+    diffs = {}
+    for factor in (mc.capacity_factor, mc.num_experts / mc.top_k):
+        m = (_reduced(J, arch) if factor == mc.capacity_factor
+             else _reduced(J, arch, capacity_factor=factor))
+        assert m.tcfg.moe.capacity_factor == factor
+        prompt = _tokens(m.tcfg, 2, PROMPT, 14)
+        jlog, tlog, fed, _, _ = _served(J, m, prompt)
+        seq = np.concatenate([prompt, fed], axis=1)
+        jfresh = np.asarray(J.jax.jit(lambda p, t: J.tf._lm_logits(
+            p, J.tf.forward_hidden(p, t, m.jcfg)[0][:, -1:], m.jcfg))(
+                m.jparams, J.jnp.asarray(seq)))
+        th, _ = ttf.forward_hidden(m.tparams, torch.from_numpy(seq).long(),
+                                   m.tcfg)
+        tfresh = ttf._lm_logits(m.tparams, th[:, -1:], m.tcfg).numpy()
+        diffs[factor] = (float(np.abs(jlog[-1] - jfresh).max()),
+                         float(np.abs(tlog[-1] - tfresh).max()))
+    (jpub, tpub), (jnone, tnone) = diffs.values()
+    assert mc.capacity_factor == 1.25
+    assert J.moe._capacity(2, mc.num_experts, mc.top_k,
+                           mc.num_experts / mc.top_k) == 2
+    print(f"R9 {arch}: cached vs fresh at 1.25: reference {jpub}, port "
+          f"{tpub}; at E/top_k: reference {jnone}, port {tnone}")
+    assert jpub > R9_DIFFERS and tpub > R9_DIFFERS
+    np.testing.assert_allclose(tpub, jpub, rtol=0.01)
+    assert jnone < R9_AGREES and tnone < R9_AGREES
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+_STEPPED: dict = {}
+
+
+def _reference_steps(J, m, batch, K, key):
+    """The reference's train step of `m` in every aggregation mode, one
+    jit for the three (they share the client gradients): {mode: (params,
+    mean loss)}."""
+    if not _STEPPED:
+        jopt = J.sgd(0.5)
+        steps = [J.steps.make_train_step(m.jcfg, jopt, num_clients=K,
+                                         agg_mode=mode)
+                 for mode in tsteps.AGG_MODES]
+        outs = J.jax.jit(lambda p, b, k: [
+            step(p, jopt.init(p), b, k)[::2] for step in steps])(
+                m.jparams, {k: J.jnp.asarray(v) for k, v in batch.items()},
+                key)
+        _STEPPED.update(zip(tsteps.AGG_MODES, outs))
+    return _STEPPED
+
+
+@pytest.mark.parametrize("mode", tsteps.AGG_MODES)
+def test_train_step_matches_reference(J, mode):
+    """One step of the reduced Arctic in float32 per aggregation
+    mode, K = 2 clients of a global batch of 4 x 12, the reference's A,
+    SGD (lr 0.5): the mean client loss (xent + aux) to 1e-6 relative and
+    every parameter after the step to F32_GRAD's share of its scale."""
+    m = _reduced(J, ARCTIC)
+    K, key = 2, J.jax.random.PRNGKey(16)
+    batch = _lm_batch(m.tcfg, 4, 12, seed=17)
+    jparams, jloss = _reference_steps(J, m, batch, K, key)[mode]
+    opt = tsgd(0.5)
+    step = tsteps.make_train_step(m.tcfg, opt, num_clients=K, agg_mode=mode)
+    A = torch.from_numpy(np.asarray(J.steps._mix_matrix(key, K)))
+    params, _, loss = step(
+        m.tparams, opt.init(m.tparams),
+        {k: torch.from_numpy(v).long() for k, v in batch.items()}, None, A=A)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
+    want = tpackets.tree_flatten(
+        ttf.lm_params_from_jax(_np_tree(J, jparams), m.tcfg, device="cpu"))[0]
+    for i, (p, w) in enumerate(zip(tpackets.tree_flatten(params)[0], want,
+                                   strict=True)):
+        _close_to_scale(p, w, **F32_GRAD, what=f"leaf {i}")
+
+
+def test_client_gradients_keep_aux(J):
+    """`client_gradients` splits the batch: client i's loss is `lm_loss`
+    of its own shard, xent + a nonzero aux, and its gradient row is that
+    loss's gradient."""
+    m = _reduced(J, ARCTIC)
+    batch = _lm_batch(m.tcfg, 4, 12, seed=18)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    losses, stack = tsteps.client_gradients(m.tparams, tb, m.tcfg, 2)
+    for i in range(2):
+        shard = {k: v[2 * i:2 * i + 2] for k, v in batch.items()}
+        loss, parts, grads = _port_loss_and_grads(m.tparams, shard, m.tcfg)
+        assert float(parts["aux"]) > 0
+        assert float(loss) != float(parts["xent"])
+        assert torch.equal(losses[i], loss.detach())
+        for s, g in zip(tpackets.tree_flatten(stack)[0], grads, strict=True):
+            assert torch.equal(s[i], g)
+
+
+def test_train_driver_runs_deepseek_on_the_cpu(capsys):
+    """`python -m repro_torch.launch.train --arch deepseek-v2-236b
+    --reduced --device cpu` trains: 2 steps, finite losses."""
+    run = ttrain.main(["--arch", "deepseek-v2-236b", "--reduced",
+                       "--device", "cpu", "--steps", "2", "--batch", "4",
+                       "--seq", "16", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "arch=deepseek-v2-236b-smoke" in out
+    assert len(run.losses) == 2 and np.isfinite(run.losses).all()
+    router = run.params["decoder"][1]["moe"]["router"]["w"]
+    assert router.dtype == torch.float32

@@ -497,7 +497,8 @@ def test_adamw_aggregation_and_checkpoint_keep_lam_float32(tmp_path):
 
 
 @pytest.mark.parametrize("argv, exc, match", [
-    (["--arch", "arctic-480b"], NotImplementedError, "ROADMAP.md §1 M4"),
+    (["--arch", "arctic-480b", "--reduced", "--mesh-model", "4"],
+     ValueError, "ROADMAP.md §1 M7"),
     (["--arch", "qwen3-4b", "--reduced", "--mesh-model", "2"], ValueError,
      "ROADMAP.md §1 M7"),
     (["--arch", "qwen3-4b", "--reduced", "--mesh-data", "4"], ValueError,
