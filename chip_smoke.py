@@ -212,6 +212,31 @@ failing on the first wrong result:
    4 decode steps within rtol = atol = 1e-3, `lm_loss`'s aux within
    1e-6 and every gradient leaf, the routers' included, within rtol 1e-4
    plus 1e-5 of the leaf's scale.
+15. the launch tier's plans against the card (after phase 14; planning
+   traces on the meta device and launches no kernel): (a)
+   `launch.dryrun.run_pair` at full width and depth for the ten configs
+   at both decode shapes (decode_32k, long_500k) and Qwen3-4B's
+   prefill_32k, the pairs that trace in about a second each (the rest:
+   `python -m repro_torch.launch.dryrun --all`, off the card): one line
+   each with the bound, its bottleneck, the planned peak and whether it
+   fits the card; (b) the plans of the steps
+   phases 7, 11, 13 and 14 ran at their depth cuts (Qwen3-4B's prefill
+   of 4 x 2,048 ids and a serve step at 36 layers, its training step at
+   18, Llama-3.2-Vision-90B at 20 layers, Arctic-480B at 2,
+   DeepSeek-V2-236B at 6) against the `max_memory_allocated` those phases
+   measured, both counted with the same resident tensors: each serving
+   plan within PLAN_TOL (25%) of the measured peak, the training plan
+   printed with its difference; (c) each plan's bound (the larger of
+   FLOPs at 989.4 TFLOP/s and the floor bytes, arguments read once and
+   outputs and cache writes written once, at 3.35 TB/s) at most
+   BOUND_SLACK x
+   every wall those phases measured for the step; (d)
+   `core.dist.make_fednc_mean` at world size 1 on NCCL over 1 GiB of
+   phase 11's gradient tree in the naive, blocked and psum modes: equal
+   to `launch.steps.aggregate_gradients` given the same A and to the
+   plain mean within phase 11 (b)'s tolerance; and one flash call at
+   phase 7's shape under the counter on the card: `flash_flops` (137.5
+   GFLOP) and one launch.
 
 Phase 1 also holds the packed kernel's batched instance against its
 plain version (J = 1, 3, 8; s = 1, 4, 8; 16-, 8-, 4- and 1-byte aligned
@@ -484,6 +509,18 @@ FLASH_TOL = {torch.float32: {"rtol": 2e-4, "atol": 2e-4},
 # tolerances: in float32 both sum the same products in other orders; in
 # bf16 the Function's gradients are that float32 gradient rounded once
 KERNEL_SOURCES = ("gf_matmul", "gf2_xor", "flash_attention")  # csrc/<name>.cu
+# phase 15: the plans (`launch.dryrun`) of the steps phases 7, 11, 13 and
+# 14 ran, against what those phases measured.  A plan counts every tensor
+# a step makes, by storage lifetime, on the meta device; what it cannot
+# see lies inside the ops (cuBLAS's workspaces, the allocator's 512-byte
+# rounding: megabytes against tens of GB), so a plan off by more than
+# PLAN_TOL of a prefill's or decode's peak is a fault of the planner
+PLAN_TOL = 0.25
+# a bound is the least time the card could take for the step's counted
+# FLOPs and its floor bytes (`roofline.floor_bytes`): a wall below it
+# (past 5% for timing) means the plan counts work the step does not do
+BOUND_SLACK = 1.05
+DIST_SLICE_BYTES = 1 << 30       # (d): phase 11's gradient tree, 1 GiB of it
 
 
 def fail(msg: str) -> None:
@@ -1436,6 +1473,7 @@ def phase7(fa, cfg, params, prompt) -> dict:
     log-prob) and on the same weights in float32 (DECODE_TOL).  Returns
     the measurements."""
     from repro_torch.core import packets as pkt
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
 
     cache_len = QWEN_PROMPT + QWEN_DECODE
@@ -1462,6 +1500,7 @@ def phase7(fa, cfg, params, prompt) -> dict:
     # the serving run: prefill, then greedy decode through the serve step
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     logits, cache = once_per_layer(
         "prefill", lambda: prefill_step(params, {"tokens": prompt}))
@@ -1514,7 +1553,8 @@ def phase7(fa, cfg, params, prompt) -> dict:
                                        "float32")
     del dec, fresh
     out = {"prefill_s": prefill_s, "decode_ms": decode_s / QWEN_DECODE * 1e3,
-           "peak": peak}
+           "peak": peak, "base": base,
+           "resident": tree_bytes(params) + tree_bytes(prompt)}
     print(f"phase 7: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
           f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd="
           f"{cfg.resolved_head_dim} bf16, B={QWEN_BATCH} prompt "
@@ -2109,9 +2149,11 @@ def phase11_attention_grads(cfg, params, batch) -> None:
 def phase11_aggregation(cfg, params, batch) -> dict:
     """(b) one per-client gradient stack at full width through each
     aggregation mode (synchronized ms); every coded mean == the plain
-    one within AGG_TOL."""
+    one within AGG_TOL.  Returns the ms and client 0's gradients of the
+    first leaves, at most DIST_SLICE_BYTES, as (1, ...) host tensors."""
+    from repro_torch.core.dist import mix_matrix
     from repro_torch.core.packets import tree_flatten
-    from repro_torch.launch.steps import (_mix_matrix, aggregate_gradients,
+    from repro_torch.launch.steps import (aggregate_gradients,
                                           client_gradients)
 
     K = TRAIN_CLIENTS
@@ -2119,7 +2161,7 @@ def phase11_aggregation(cfg, params, batch) -> dict:
     torch.cuda.synchronize()
     check(bool(torch.isfinite(losses).all()),
           f"phase 11 (b): non-finite client losses {losses.tolist()}")
-    A = _mix_matrix(torch.Generator().manual_seed(SEED_MIX), K)
+    A = mix_matrix(torch.Generator().manual_seed(SEED_MIX), K)
     plain, ms = None, {}
     for mode in ("plain", "fednc_naive", "fednc_blocked"):
         aggregate_gradients(stack, None, K, mode, A=A)          # warm
@@ -2146,7 +2188,15 @@ def phase11_aggregation(cfg, params, batch) -> dict:
           f"{n} bf16 parameters ({2 * K * n} bytes), synchronized: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
           + f"; client losses {[round(x, 4) for x in losses.tolist()]}")
-    return ms
+    # phase 15 (d) codes client 0's gradients of the first leaves, up to
+    # DIST_SLICE_BYTES, again: kept on the host until then
+    grads, total = {}, 0
+    for i, leaf in enumerate(tree_flatten(stack)[0]):
+        if total + leaf[0].numel() * leaf.element_size() > DIST_SLICE_BYTES:
+            break
+        grads[f"leaf{i}"] = leaf[:1].cpu()
+        total += leaf[0].numel() * leaf.element_size()
+    return ms, grads
 
 
 def train_launches(cfg) -> int:
@@ -2160,9 +2210,12 @@ def phase11_train(cfg, holder: dict):
     loop on `holder["params"]`, which it takes (so that only the run
     holds the weights a step replaces): finite losses; returns the
     run."""
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.train import train
 
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    resident = tree_bytes(holder["params"])
     run = train(cfg, holder.pop("params"), steps=TRAIN_STEPS, batch=TRAIN_BATCH,
                 seq=TRAIN_SEQ, clients=TRAIN_CLIENTS, agg=TRAIN_AGG,
                 lr=TRAIN_LR, log_every=1,
@@ -2182,7 +2235,8 @@ def phase11_train(cfg, holder: dict):
           f"steps: {[round(tokens / t, 1) for t in timed]}); "
           f"max_memory_allocated {peak} bytes "
           f"({peak / 2**30:.2f} GiB)")
-    return run
+    return run, {"peak": peak, "base": base, "resident": resident,
+                 "step_s": list(run.step_s)}
 
 
 def phase11_trace(fa, cfg, run) -> None:
@@ -2248,9 +2302,10 @@ def phase11_card_vs_cpu(arch: str, label: str = "phase 11 (c)") -> None:
     CPU from the same weights, batch and mixing matrix: per-client and
     aggregated gradients within GRAD_TOL, the same loss."""
     from repro_torch.configs import reduced_config
+    from repro_torch.core.dist import mix_matrix
     from repro_torch.core.packets import tree_flatten, tree_map
     from repro_torch.data.tokens import make_token_stream
-    from repro_torch.launch.steps import (_mix_matrix, aggregate_gradients,
+    from repro_torch.launch.steps import (aggregate_gradients,
                                           client_gradients)
     from repro_torch.models import transformer as tf
 
@@ -2260,7 +2315,7 @@ def phase11_card_vs_cpu(arch: str, label: str = "phase 11 (c)") -> None:
                         device="cpu")
     b = make_token_stream(cfg.vocab_size, seed=0).batch(REDUCED_BATCH,
                                                         REDUCED_SEQ)
-    A = _mix_matrix(torch.Generator().manual_seed(SEED_MIX), K)
+    A = mix_matrix(torch.Generator().manual_seed(SEED_MIX), K)
     outs = {}
     for dev in ("cuda", "cpu"):
         p = tree_map(lambda t, dev=dev: t.to(dev), params)
@@ -2326,7 +2381,9 @@ def phase11_checkpoint(params) -> None:
 def phase11(fa, attn, wrappers, cfg, holder: dict) -> dict:
     """Phase 11; `holder["params"]` (phase 7's weights cut to
     TRAIN_LAYERS) is taken, so that only the training run holds them.
-    Returns the training run's launch counts."""
+    Returns the training run's launch counts and, for phase 15, its
+    measurements and a 1-GiB slice of a client's gradients (on the
+    host)."""
     from repro_torch.core.packets import tree_flatten
     from repro_torch.data.tokens import make_token_stream
 
@@ -2342,7 +2399,7 @@ def phase11(fa, attn, wrappers, cfg, holder: dict) -> dict:
         (TRAIN_BATCH // TRAIN_CLIENTS, TRAIN_SEQ, 32, 8, 128)))
     phase11_attention_grads(cfg, params, batch)
     torch.cuda.reset_peak_memory_stats()
-    phase11_aggregation(cfg, params, batch)
+    _, grads = phase11_aggregation(cfg, params, batch)
     print(f"phase 11 (b): max_memory_allocated of the aggregation check "
           f"{torch.cuda.max_memory_allocated()} bytes")
     del batch
@@ -2356,8 +2413,9 @@ def phase11(fa, attn, wrappers, cfg, holder: dict) -> dict:
           f"{sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])})")
     holder["params"] = params
     del params
-    counts, run = main_path("phase 11", wrappers, ("flash_attention",),
-                            lambda: phase11_train(cfg, holder))
+    counts, (run, measured) = main_path(
+        "phase 11", wrappers, ("flash_attention",),
+        lambda: phase11_train(cfg, holder))
     want = train_launches(cfg)
     check(counts["flash_attention"] == want,
           f"phase 11 (b): flash_attention launched "
@@ -2370,7 +2428,7 @@ def phase11(fa, attn, wrappers, cfg, holder: dict) -> dict:
           f"the training run {counts['flash_attention']} == 2 x "
           f"{cfg.num_layers} layers x {TRAIN_CLIENTS} clients x "
           f"{TRAIN_STEPS} steps; largest flash gradient error {grad_err}")
-    return counts
+    return counts, {"train": measured, "grads": grads}
 
 
 # ---------------------------------------------------------------------------
@@ -2742,6 +2800,7 @@ def phase13_serve(fa, arch: str, card: str) -> dict:
     memory embeddings; then profiles one more prefill."""
     from repro_torch.configs import get_config
     from repro_torch.core.packets import tree_flatten
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as tf
 
@@ -2777,6 +2836,8 @@ def phase13_serve(fa, arch: str, card: str) -> dict:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    resident = tree_bytes(params) + tree_bytes(batch)
     t0 = time.perf_counter()
     logits, cache = counted("prefill", lambda: prefill_step(params, batch))
     torch.cuda.synchronize()
@@ -2892,7 +2953,8 @@ def phase13_serve(fa, arch: str, card: str) -> dict:
           f"(profiler)")
     del params, batch, prompt, memory
     return {"prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak,
-            "err": err, "flash_ms": flash_us / flash / 1e3}
+            "base": base, "resident": resident, "err": err,
+            "flash_ms": flash_us / flash / 1e3}
 
 
 def phase13_card_vs_cpu() -> None:
@@ -3051,6 +3113,7 @@ def phase14_serve(fa, arch: str, card: str) -> dict:
     printed, not held); then profiles one more prefill."""
     from repro_torch.configs import get_config
     from repro_torch.core.packets import tree_flatten, tree_map
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as tf
 
@@ -3088,6 +3151,8 @@ def phase14_serve(fa, arch: str, card: str) -> dict:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    resident = tree_bytes(params) + tree_bytes(batch)
     t0 = time.perf_counter()
     logits, cache = counted("prefill", lambda: prefill_step(params, batch))
     torch.cuda.synchronize()
@@ -3212,7 +3277,7 @@ def phase14_serve(fa, arch: str, card: str) -> dict:
               f"launch (profiler)")
     del params, batch, prompt, leaves, routers
     return {"prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak,
-            "err": err, "r9": r9,
+            "base": base, "resident": resident, "err": err, "r9": r9,
             "flash_ms": flash_us / flash / 1e3 if flash else None}
 
 
@@ -3318,6 +3383,219 @@ def phase14(fa) -> dict:
     phase14_card_vs_cpu()
     print(f"phase 14: {time.perf_counter() - t0:.3f} s")
     return out
+
+# ---------------------------------------------------------------------------
+# phase 15: the launch tier's plans against the card
+# ---------------------------------------------------------------------------
+
+def phase15_pairs() -> int:
+    """(a) `run_pair` at full width and depth for every config at both
+    decode shapes and for Qwen3-4B's prefill_32k: one line per pair
+    (bound, bottleneck, planned peak, fits).  Returns the count."""
+    from repro_torch.configs import ARCHITECTURES
+    from repro_torch.launch import dryrun
+
+    pairs = [(a, s) for s in ("decode_32k", "long_500k")
+             for a in ARCHITECTURES] + [("qwen3_4b", "prefill_32k")]
+    t0 = time.perf_counter()
+    for arch, shape in pairs:
+        rec = dryrun.run_pair(arch, shape)
+        check(rec["status"] == "ok", f"phase 15 (a): {arch} x {shape} "
+              f"was not planned: {rec}")
+        print(f"phase 15 (a): {arch} x {shape}: {dryrun.summary(rec)} "
+              f"(traced in {rec['trace_s']} s)", flush=True)
+    print(f"phase 15 (a): {len(pairs)} pairs planned in "
+          f"{time.perf_counter() - t0:.3f} s (all 40: python -m "
+          f"repro_torch.launch.dryrun --all)")
+    return len(pairs)
+
+
+def phase15_held(label: str, measured: dict, steps: list, card: str,
+                 hold_peak: bool = True) -> None:
+    """(b) the plans of one phase's steps against the peak it measured,
+    both counted with the same resident tensors: the measured peak above
+    what was resident at its reset, plus the plan's own arguments that
+    were resident then; the plan's peak is its steps' largest, each with
+    the bytes the phase kept beside the step's arguments.  (c) each
+    step's bound against every wall the phase measured for it.  `steps`:
+    (name, plan, extra resident bytes, walls in s)."""
+    from repro_torch.launch.dryrun import bound_s
+
+    want = measured["peak"] - measured["base"] + measured["resident"]
+    plan = max(p["memory_plan"]["peak_bytes"] + extra
+               for _, p, extra, _ in steps)
+    rel = plan / want - 1.0
+    if hold_peak:
+        check(abs(rel) <= PLAN_TOL,
+              f"phase 15 (b): {label}: planned peak {plan} bytes, measured "
+              f"{want} ({rel:+.2%}, limit {PLAN_TOL:.0%})")
+    print(f"phase 15 (b): {label}: planned peak {plan} bytes "
+          f"({plan / 2**30:.2f} GiB), measured {want} ({want / 2**30:.2f} "
+          f"GiB: max_memory_allocated {measured['peak']} - resident at "
+          f"reset {measured['base']} + the plan's arguments "
+          f"{measured['resident']}), {rel:+.2%}"
+          + ("" if hold_peak else " (printed, not held)") + f"; on {card}")
+    for name, p, _, walls in steps:
+        b = bound_s(p)
+        r = p["roofline"]
+        for w in walls:
+            check(b <= BOUND_SLACK * w,
+                  f"phase 15 (c): {label} {name}: bound {b} s above "
+                  f"{BOUND_SLACK} x the measured wall {w} s")
+        print(f"phase 15 (c): {label} {name}: bound {b * 1e3:.3f} ms "
+              f"({r['bottleneck']}; compute {r['compute_s'] * 1e3:.3f} ms, "
+              f"memory {r['memory_s'] * 1e3:.3f} ms: "
+              f"{p['trace_analysis']['flops_per_device']:.6e} FLOP, "
+              f"{p['trace_analysis']['floor_bytes_per_device']:.6e} floor "
+              f"bytes; eager bytes "
+              f"{p['trace_analysis']['eager_bytes_per_device']:.6e}, "
+              f"{r['eager_memory_s'] * 1e3:.3f} ms) "
+              f"against walls {[round(w * 1e3, 3) for w in walls]} ms: "
+              f"{100 * b / min(walls):.1f}% of the shortest")
+
+
+def serve_plans(cfg, batch: int, prompt: int, decode: int,
+                mem_len: int = 0) -> list:
+    """The plans of a serving phase's prefill (batch x prompt ids, cache
+    prompt + decode) and of one serve step against that cache, the
+    prompt (and memory) still resident beside it."""
+    from repro_torch.launch import dryrun
+
+    params = dryrun.init_params(cfg)
+    kw = {"cache_len": prompt + decode, "mem_len": mem_len}
+    pre = dryrun.plan_step(cfg, params, "prefill", batch, prompt, **kw)
+    dec = dryrun.plan_step(cfg, params, "decode", batch, prompt, **kw)
+    return [("prefill", pre, 0), ("decode step", dec,
+                                  pre["memory_plan"]["input_bytes"])]
+
+
+def phase15_flash_count(wrappers) -> None:
+    """The counter sees one flash call on the card as on meta and the
+    CPU: `flash_flops` at phase 7's shape (137.5 GFLOP, the bound of
+    PERF.md §6), with the kernel launched once."""
+    from repro_torch.kernels.flash_attention import flash_flops
+    from repro_torch.launch.roofline import analyze_step
+
+    flash = next(fn for fn in wrappers if fn.__name__ == "flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(SEED_F1)
+    q, k, v = (torch.randn((QWEN_BATCH, QWEN_PROMPT, h, 128), device="cuda",
+                           generator=g).to(torch.bfloat16)
+               for h in (32, 8, 8))
+    before = flash.launches
+    ana, out = analyze_step(lambda: flash(q, k, v), "cuda")
+    torch.cuda.synchronize()
+    want = flash_flops(QWEN_BATCH, QWEN_PROMPT, 32, 128, True)
+    check(ana.flops == want and flash.launches - before == 1 and
+          bool(torch.isfinite(out).all()),
+          f"phase 15: the counter saw {ana.flops} FLOP in "
+          f"{flash.launches - before} flash launches, not {want} in one")
+    print(f"phase 15: flash at (4, 2,048, 32/8, 128) bf16 on the card: "
+          f"{ana.flops:.0f} FLOP counted (flash_flops {want}), "
+          f"{ana.n_ops} op, 1 launch")
+
+
+def phase15_dist(grads: dict) -> None:
+    """(d) `core.dist.make_fednc_mean` at world size 1 on NCCL over a
+    slice of phase 11's gradient tree, in each mode: equal to
+    `aggregate_gradients` given the same A and to the plain mean (the
+    client's own gradient, K = 1) within AGG_TOL."""
+    import torch.distributed as dist
+
+    from repro_torch.core import dist as cdist
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import aggregate_gradients
+
+    mesh = mesh_mod.make_production_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"phase 15 (d): a {dist.get_backend()} group of "
+              f"{dist.get_world_size()}, not NCCL at world size 1")
+        tree = {k: v.cuda() for k, v in grads.items()}
+        n = sum(t.numel() * t.element_size() for t in tree.values())
+        A = cdist.mix_matrix(torch.Generator().manual_seed(SEED_MIX), 1)
+        for mode, agg in (("naive", "fednc_naive"),
+                          ("blocked", "fednc_blocked"), ("psum", "plain")):
+            f = cdist.make_fednc_mean(mesh, axis="data", mode=mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = f(tree, A=A)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want = aggregate_gradients(tree, None, 1, agg, A=A)
+            errs = []
+            for k, x in tree.items():
+                g = got[k][0].float()
+                for ref_, what in ((want[k].float(), "aggregate_gradients"),
+                                   (x[0].float(), "the plain mean")):
+                    check(bool(torch.allclose(g, ref_, **AGG_TOL)),
+                          f"phase 15 (d): {mode} coded mean differs from "
+                          f"{what} on {k} (max |err| {leaf_err(g, ref_)}, "
+                          f"tolerance {AGG_TOL})")
+                errs.append(max(leaf_err(g, want[k].float()),
+                                leaf_err(g, x[0].float())))
+            del got, want
+            print(f"phase 15 (d): {mode} on NCCL, world size 1, "
+                  f"{len(tree)} leaves of phase 11's gradients ({n} bytes): "
+                  f"== aggregate_gradients({agg!r}, same A) and the plain "
+                  f"mean within {AGG_TOL}, max |err| {max(errs)}; "
+                  f"{ms:.3f} ms (synchronized)")
+    finally:
+        mesh_mod.destroy_production_mesh()
+
+
+def phase15(wrappers, m7: dict, m11: dict, m13: dict, m14: dict) -> None:
+    """Phase 15: (a) full-size plans, (b) the plans of phases 7, 11, 13
+    and 14's steps against their measured peaks, (c) their bounds
+    against the measured walls, (d) the coded mean on NCCL.  Planning
+    traces on the meta device and must launch no kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    card = card_line()
+    before = launch_counts(wrappers)
+    phase15_pairs()
+
+    cfg = get_config(QWEN)
+    phase15_held(f"phase 7 {QWEN} {cfg.num_layers} layers", m7,
+                 [(n, p, x, [m7["prefill_s"] if n == "prefill"
+                             else m7["decode_ms"] / 1e3])
+                  for n, p, x in serve_plans(cfg, QWEN_BATCH, QWEN_PROMPT,
+                                             QWEN_DECODE)], card)
+    cfg = cfg.with_overrides(num_layers=TRAIN_LAYERS)
+    train = dryrun.plan_step(cfg, dryrun.init_params(cfg), "train",
+                             TRAIN_BATCH, TRAIN_SEQ, clients=TRAIN_CLIENTS,
+                             agg_mode=TRAIN_AGG, state_dtype=torch.float32)
+    phase15_held(f"phase 11 {QWEN} {TRAIN_LAYERS} layers",
+                 m11["train"], [("train step", train, 0,
+                                 m11["train"]["step_s"])], card,
+                 hold_peak=False)
+    print("phase 15 (b): the training plan cannot see the checkpointed "
+          "recompute's autograd bookkeeping nor the allocator's and "
+          "cuBLAS's workspaces; it is printed, not held")
+    for label, arch, layers, m, mem_len, batch, prompt, decode in (
+            ("phase 13 (a)", M5_VISION, M5_VISION_LAYERS, m13, None,
+             M5_BATCH, M5_VISION_PROMPT, M5_DECODE),
+            ("phase 14 (a)", M4_ARCTIC, M4_LAYERS[M4_ARCTIC], m14, 0,
+             M4_BATCH, M4_PROMPT, M4_DECODE),
+            ("phase 14 (b)", M4_DEEPSEEK, M4_LAYERS[M4_DEEPSEEK], m14, 0,
+             M4_BATCH, M4_PROMPT, M4_DECODE)):
+        cfg = get_config(arch).with_overrides(num_layers=layers)
+        measured = m[arch]
+        plans = serve_plans(cfg, batch, prompt, decode,
+                            cfg.num_frontend_tokens if mem_len is None
+                            else mem_len)
+        phase15_held(f"{label} {arch} {layers} layers", measured,
+                     [(n, p, x, [measured["prefill_s"] if n == "prefill"
+                                 else measured["decode_ms"] / 1e3])
+                      for n, p, x in plans], card)
+    check(launch_counts(wrappers) == before,
+          f"phase 15: planning launched a kernel ({before} -> "
+          f"{launch_counts(wrappers)})")
+    phase15_flash_count(wrappers)
+    phase15_dist(m11["grads"])
+    print(f"phase 15: {time.perf_counter() - t0:.3f} s")
+
 
 # ---------------------------------------------------------------------------
 # where a round's time goes: one traced round per 500M configuration
@@ -3664,8 +3942,8 @@ def main() -> None:
 
     cfg = get_config(QWEN)
     params, prompt = qwen_model(cfg)
-    counts7, _ = main_path("phase 7", wrappers, ("flash_attention",),
-                           lambda: phase7(fa, cfg, params, prompt))
+    counts7, m7 = main_path("phase 7", wrappers, ("flash_attention",),
+                            lambda: phase7(fa, cfg, params, prompt))
     runs.append((counts7, None))
     phase9(wrappers, runs)
     runs.append(main_path("phase 10", wrappers,
@@ -3678,18 +3956,22 @@ def main() -> None:
                          "decoder": params["decoder"][:TRAIN_LAYERS]}}
     del params, prompt
     torch.cuda.empty_cache()
-    runs.append((phase11(fa, attn, wrappers, cfg, holder), None))
+    counts11, m11 = phase11(fa, attn, wrappers, cfg, holder)
+    runs.append((counts11, None))
     torch.cuda.empty_cache()
     runs.append(main_path("phase 12", wrappers, ("flash_attention",),
                           lambda: phase12(fa, attn)))
     torch.cuda.empty_cache()
-    counts13, _ = main_path("phase 13", wrappers, ("flash_attention",),
-                            lambda: phase13(fa))
+    counts13, m13 = main_path("phase 13", wrappers, ("flash_attention",),
+                              lambda: phase13(fa))
     runs.append((counts13, None))
     torch.cuda.empty_cache()
-    counts14, _ = main_path("phase 14", wrappers, ("flash_attention",),
-                            lambda: phase14(fa))
+    counts14, m14 = main_path("phase 14", wrappers, ("flash_attention",),
+                              lambda: phase14(fa))
     runs.append((counts14, None))
+    torch.cuda.empty_cache()
+    phase15(wrappers, m7, m11, m13, m14)
+    del m11
     counts = {fn.__name__: sum(c[fn.__name__] for c, _ in runs)
               for fn in wrappers}
     print("kernels: " + ", ".join(f"{k} launches={v}"

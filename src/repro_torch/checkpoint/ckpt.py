@@ -113,8 +113,8 @@ def load_pytree(path: str, like: Any, device=None) -> Any:
 
 def restore(path: str, like: Any, device=None) -> Any:
     """`load_pytree` onto `device`.  The reference's `restore` places
-    leaves on a sharding tree; the port runs on one device
-    (ROADMAP.md §1 M7 brings the mesh)."""
+    leaves on a sharding tree; the port's mesh is one card
+    (`launch.mesh`)."""
     return load_pytree(path, like, device)
 
 

@@ -24,11 +24,17 @@ ValueError otherwise.
 
 The wrapper decides by the tensor's device alone: a CPU tensor runs the
 plain version `ref.flash_attention_ref`, a CUDA tensor launches the
-kernel or raises.  It counts its launches in ``.launches``.  It is an
-autograd Function: the kernels compute no logsumexp, so its backward,
-`attention_backward`, recomputes the softmax in float32 and applies the
-closed-form gradient of the reference's `_attend` in plain PyTorch (the
-reference takes that gradient by autodiff, outside any kernel).
+kernel or raises, and a meta tensor (a traced plan, `launch.roofline`)
+gets an output of the right shape and launches nothing.  It counts its
+launches in ``.launches``.  The forward is one operator,
+``torch.ops.repro_torch.flash_attention``, so a dispatch mode sees one op
+on every device, not the plain version's products; its FLOP formula
+(`flash_flops`, registered with `torch.utils.flop_counter`) counts the
+causal half the kernel computes.  It is an autograd Function: the
+kernels compute no logsumexp, so its backward, `attention_backward`,
+recomputes the softmax in float32 and applies the closed-form gradient
+of the reference's `_attend` in plain PyTorch (the reference takes that
+gradient by autodiff, outside any kernel).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import functools
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import ref
 
@@ -91,7 +98,7 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if not causal and S % max(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K):
         raise ValueError("non-causal flash requires S % block == 0 "
@@ -195,16 +202,44 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.to(v.dtype))
 
 
+def flash_flops(B: int, S: int, H: int, hd: int, causal: bool) -> int:
+    """The multiply-adds (x2) of one call: q·kᵀ and P·V over the live
+    (query, key) pairs of each head, S(S+1)/2 when causal (the kernel
+    skips the tiles above the diagonal), else S²."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * H * pairs * hd
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
+    """The forward as one operator: the plain version on the CPU, one
+    launch of the kernel on the card."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _launch(q, k, v, causal)
+
+
+@_flash_op.register_fake
+def _flash_meta(q, k, v, causal):
+    """The output's shape and dtype, without a launch (meta tensors)."""
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_op_flops(q_shape, k_shape, v_shape, causal, *args,
+                    out_shape=None, **kwargs) -> int:
+    B, S, H, hd = q_shape
+    return flash_flops(B, S, H, hd, causal)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The kernel (or, on the CPU, its plain version) forward and
     `attention_backward` backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cpu":
-            out = ref.flash_attention_ref(q, k, v, causal=causal)
-        else:
-            out = _launch(q, k, v, causal)
+        out = _flash_op(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
         return out
@@ -223,7 +258,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors launch the hand-written kernel of their dtype (a launch
     that fails raises; nothing falls back to another attention); CPU
-    tensors run `ref.flash_attention_ref`.
+    tensors run `ref.flash_attention_ref`; meta tensors launch nothing.
     """
     check_operands(q, k, v, causal)
     return _FlashAttention.apply(q, k, v, causal)

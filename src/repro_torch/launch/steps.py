@@ -26,6 +26,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.core.dist import mix_matrix
 from repro_torch.core.packets import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
@@ -39,12 +40,6 @@ AGG_COLUMNS = 1 << 24     # columns of a (K, n) gradient stack coded at once
 # ---------------------------------------------------------------------------
 # FedNC gradient aggregation (float field)
 # ---------------------------------------------------------------------------
-
-def _mix_matrix(generator: torch.Generator, K: int) -> torch.Tensor:
-    """A (K, K) standard-normal float32 mixing matrix from a host
-    generator."""
-    return torch.randn((K, K), generator=generator, dtype=torch.float32)
-
 
 def float_inv(A: torch.Tensor) -> torch.Tensor:
     """Gauss–Jordan inverse of a small K x K matrix, unrolled, with the
@@ -81,7 +76,7 @@ def aggregate_gradients(grads: Any, generator: Optional[torch.Generator],
                         A: Optional[torch.Tensor] = None,
                         code_in_bf16: bool = False) -> Any:
     """grads: tree of (K, ...) per-client gradients -> tree of (...)
-    means.  The coded modes draw A from `generator` (`_mix_matrix`)
+    means.  The coded modes draw A from `generator` (`core.dist.mix_matrix`)
     unless A is given.
 
     code_in_bf16 keeps the coded packets in the gradient's dtype (bf16)
@@ -92,7 +87,7 @@ def aggregate_gradients(grads: Any, generator: Optional[torch.Generator],
     if mode == "plain":
         return tree_map(lambda g: torch.mean(g, 0), grads)
     if A is None:
-        A = _mix_matrix(generator, K)
+        A = mix_matrix(generator, K)
     A_inv = float_inv(A.cpu())
     device = tree_flatten(grads)[0][0].device
     A, A_inv = A.to(device), A_inv.to(device)
@@ -166,7 +161,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     kshard_grads pins the reference's per-client gradient stack to a
     mesh layout (client axis on `data`); it is a sharding constraint,
     the identity on one device, as in the reference without a mesh.
-    The port runs on one device; ROADMAP.md §1 M7 brings the mesh."""
+    The port's mesh is one card (`launch.mesh`)."""
     K = num_clients
     if agg_mode not in AGG_MODES:
         raise ValueError(f"unknown aggregation mode {agg_mode!r}")

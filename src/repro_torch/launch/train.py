@@ -15,9 +15,9 @@ frontend (Llama-3.2-Vision, SeamlessM4T) is fed zero memory embeddings
 trains the default architecture, `xlstm-125m` (its reduced config);
 ``--arch`` names another (`qwen3-4b`, `recurrentgemma-9b`, ...).  It
 runs on ``--device`` (``cuda`` by default; ``--device cpu`` runs the
-kernels' plain versions).  The mesh flags keep the reference's names
-but take only their one-device values (ROADMAP.md §1 M7 brings the
-mesh).
+kernels' plain versions).  The mesh flags keep the reference's names;
+one card is the mesh (`launch.mesh`: --mesh-data 0 or 1, --mesh-model
+1), and a larger one raises.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from repro_torch import obs
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.packets import tree_flatten
 from repro_torch.data.tokens import make_token_stream
+from repro_torch.launch.mesh import check_one_card
 from repro_torch.launch.steps import AGG_MODES, make_train_step
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw, linear_warmup_cosine
@@ -102,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--agg", default="fednc_blocked", choices=AGG_MODES)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh-data", type=int, default=0,
-                    help="data axis size (0 = all devices; one device here)")
+                    help="data axis size (0 = all devices: one card)")
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-every", type=int, default=10)
@@ -113,11 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> TrainRun:
     args = build_parser().parse_args(argv)
-    if args.mesh_data not in (0, 1) or args.mesh_model != 1:
-        raise ValueError(
-            f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model}: "
-            f"the port trains on one device (--mesh-data 0 or 1, "
-            f"--mesh-model 1); see ROADMAP.md §1 M7 for the mesh")
+    # the data axis spans every device (0): one card here
+    check_one_card(args.mesh_data or 1, args.mesh_model)
     cfg = (reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     device = torch.device(args.device)

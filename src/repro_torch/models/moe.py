@@ -11,7 +11,8 @@ The port of `repro.models.moe`, holding its function:
   (`_capacity`).  So a decode step, one group of B tokens, gets other
   capacities than a fresh forward over the whole sequence, and drops
   other (token, choice) pairs (ROADMAP.md §3 R9);
-- the router is float32 (its weight and its input), softmax, top-k; the
+- the router is float32 (its weight and its input), softmax, top-k (the
+  lower expert first among equal probabilities, as `jax.lax.top_k`); the
   k gates are divided by their sum (+ 1e-9) before any drop and are not
   renormalised after it;
 - a (token, choice) pair's slot is the number of earlier pairs that
@@ -35,7 +36,7 @@ expert output back by index, which computes the same sums.  The expert
 products are `torch.bmm` over (E, C, d) and stay plain PyTorch, as the
 reference leaves them to XLA: no TPU kernel stands behind them.  The
 reference's mesh knob for the dispatched activations (`MOE_ACT_SPEC`)
-waits for the mesh (ROADMAP.md §1 M7).
+has nothing to pin on the port's one-card mesh (`launch.mesh`).
 """
 from __future__ import annotations
 
@@ -57,6 +58,8 @@ def _expert_stack(g: torch.Generator, E: int, d_in: int, d_out: int,
     expert at a time: a float32 draw of Arctic's whole (128, 7,168,
     4,864) stack would be 17.9 GB."""
     w = torch.empty((E, d_in, d_out), dtype=dtype, device=device)
+    if w.is_meta:           # shapes only (a plan): there is nothing to draw
+        return w
     for e in range(E):
         w[e] = (torch.randn((d_in, d_out), generator=g, dtype=torch.float32,
                             device=device) * scale).to(dtype)
@@ -101,7 +104,11 @@ def _route(p: dict, xt: torch.Tensor, cfg: ModelConfig):
 
     logits = dense_apply(p["router"], xt.float())                 # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)            # (T, k)
+    # the top k with `jax.lax.top_k`'s tie order, the lower expert first
+    # among equal probabilities (`torch.topk` promises no order there)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]       # (T, k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
 
     # slot of each (token, choice) pair within its expert: the count of

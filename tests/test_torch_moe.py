@@ -263,6 +263,42 @@ def test_apply_moe_over_several_groups_matches_reference(
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
 
 
+@pytest.mark.parametrize("zeros", [1, 2])
+@pytest.mark.parametrize("arch", [ARCTIC, DEEPSEEK])
+def test_zero_tokens_route_as_the_reference_f4(J, monkeypatch, arch, zeros):
+    """An all-zero token has zero router logits, so its E probabilities
+    tie exactly: it must route to experts 0..k-1, the lower index first
+    among equals, as `jax.lax.top_k` orders them.  One group of 8 tokens
+    through `_route_group` and 2 x 4 through `apply_moe`, with `zeros`
+    of them zero, in float32 on the reference's weights: the same
+    experts and slots, y and aux."""
+    jcfg, tcfg = _cfgs(J, arch, "f32")
+    k = tcfg.moe.top_k
+    jp, tp = _both(J, _np_tree(J, J.moe.init_moe(J.jax.random.PRNGKey(5),
+                                                  jcfg)))
+    x = np.random.default_rng(7).standard_normal(
+        (8, tcfg.d_model)).astype(np.float32)
+    tied = [1, 6][:zeros]
+    x[tied] = 0.0
+    jx, tx = _as(J, x, jcfg.dtype, tcfg.dtype)
+    (want, jaux), jidx, jpos = _reference_routing(
+        J, monkeypatch, lambda: J.moe._route_group(jp, jx, jcfg))
+    _, _, idx, pos, _ = tmoe._route(tp, tx, tcfg)
+    np.testing.assert_array_equal(idx.numpy()[tied],
+                                  np.tile(np.arange(k), (zeros, 1)))
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    np.testing.assert_array_equal(pos.numpy(), jpos)
+    got, aux = tmoe._route_group(tp, tx, tcfg)
+    np.testing.assert_allclose(_f32(got), _f32(want), **F32_TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+
+    jx, tx = _as(J, x.reshape(2, 4, -1), jcfg.dtype, tcfg.dtype)
+    want, jaux = J.moe.apply_moe(jp, jx, jcfg)
+    got, aux = tmoe.apply_moe(tp, tx, tcfg)
+    np.testing.assert_allclose(_f32(got), _f32(want), **F32_TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # MLA
 # ---------------------------------------------------------------------------

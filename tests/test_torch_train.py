@@ -34,6 +34,7 @@ import torch
 from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import load_pytree, restore, save_pytree
 from repro_torch.core import packets as tpackets
+from repro_torch.core.dist import mix_matrix
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
@@ -195,13 +196,13 @@ def test_aggregate_gradients_in_column_slabs_changes_nothing(
 
 
 def test_aggregate_gradients_draws_from_the_generator():
-    """Without A the coded modes draw `_mix_matrix` from the host
+    """Without A the coded modes draw `core.dist.mix_matrix` from the host
     generator: the same seed gives the same mean as that matrix given;
     an unknown mode raises."""
     grads = {k: torch.from_numpy(v) for k, v in _grad_stack(4).items()}
     drawn = tsteps.aggregate_gradients(
         grads, torch.Generator().manual_seed(5), 4, "fednc_naive")
-    A = tsteps._mix_matrix(torch.Generator().manual_seed(5), 4)
+    A = mix_matrix(torch.Generator().manual_seed(5), 4)
     given = tsteps.aggregate_gradients(grads, None, 4, "fednc_naive", A=A)
     for k in grads:
         assert torch.equal(drawn[k], given[k])
@@ -498,11 +499,11 @@ def test_adamw_aggregation_and_checkpoint_keep_lam_float32(tmp_path):
 
 @pytest.mark.parametrize("argv, exc, match", [
     (["--arch", "arctic-480b", "--reduced", "--mesh-model", "4"],
-     ValueError, "ROADMAP.md §1 M7"),
+     ValueError, "runs on one card"),
     (["--arch", "qwen3-4b", "--reduced", "--mesh-model", "2"], ValueError,
-     "ROADMAP.md §1 M7"),
+     "runs on one card"),
     (["--arch", "qwen3-4b", "--reduced", "--mesh-data", "4"], ValueError,
-     "ROADMAP.md §1 M7"),
+     "runs on one card"),
 ])
 def test_train_driver_refuses_what_is_not_ported(argv, exc, match):
     with pytest.raises(exc, match=match):
